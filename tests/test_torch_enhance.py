@@ -1,0 +1,199 @@
+"""The port's enhance slice against the JAX package's, on the CPU.
+
+ONNX import of the shipped artifact (arrays equal), make_enhance_fn in fp32
+(<= 1 LSB, >= 50 dB) and bf16 (>= 50 dB), the whole slice on a full
+576x752 frame (>= 50 dB, README's contract), the entry points' device rules,
+and the import rule: the port and chip_smoke.py import neither jax nor the
+JAX package.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from conftest import psnr
+from fs_uae_image_enhancer_project_tpu.export import enhance as jax_enhance
+from fs_uae_image_enhancer_project_tpu.export import onnx_import as jax_import
+from fs_uae_image_enhancer_project_tpu.models import get_model as jax_model
+from fs_uae_image_enhancer_project_tpu_torch.export import enhance as tor_enhance
+from fs_uae_image_enhancer_project_tpu_torch.export import onnx_import as tor_import
+from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
+from fs_uae_image_enhancer_project_tpu_torch.models import get_model
+from fs_uae_image_enhancer_project_tpu_torch.ops.cuda.fused_stack import fused_stack_apply_plain
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ONNX = os.path.join(REPO, "artifacts", "model_pix_shuffle", "pix_shuffle.onnx")
+PORT = os.path.join(REPO, "fs_uae_image_enhancer_project_tpu_torch")
+
+
+def _frames(shape, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+
+
+def test_onnx_import_equals_jax_import():
+    want = jax_import.import_pix_shuffle(ONNX)
+    got = tor_import.import_pix_shuffle(ONNX)
+    assert got.kind == want.kind == "pix_shuffle"
+    assert got.crop_left == want.crop_left == 0
+    assert got.srgb_to_linear_exponent == want.srgb_to_linear_exponent
+    assert got.linear_to_srgb_exponent == want.linear_to_srgb_exponent
+    assert got.linear_to_srgb_exponent == pytest.approx(0.4546, abs=1e-4)
+    assert got.num_conv_layers == want.num_conv_layers == 7
+    assert sorted(got.params) == sorted(want.params)
+    for slot, leaves in want.params.items():
+        assert sorted(got.params[slot]) == sorted(leaves)
+        for leaf, arr in leaves.items():
+            assert got.params[slot][leaf].dtype == np.float32
+            np.testing.assert_array_equal(got.params[slot][leaf], arr)
+
+
+def test_artifact_kind_routes_other_families_to_later_slices():
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_proto import load_model
+
+    assert tor_import.artifact_kind(load_model(ONNX)) == "pix_shuffle"
+    conv3 = os.path.join(REPO, "artifacts", "model_conv3", "conv3.onnx")
+    assert tor_import.artifact_kind(load_model(conv3)) == "conv_stack"
+    with pytest.raises(NotImplementedError):
+        tor_enhance.enhance_from_onnx(conv3, device="cpu")
+
+
+def _both(crop_left, compute_dtype_jax, compute_dtype_torch, seed=0):
+    jm = jax_model("pix_shuffle")
+    tree = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.key(seed)))
+    jfn = jax_enhance.make_enhance_fn(jm.apply, tree, crop_left=crop_left,
+                                      compute_dtype=compute_dtype_jax, donate=False)
+    m = get_model("pix_shuffle")
+    tfn = tor_enhance.make_enhance_fn(m.apply, params_from_jax(tree, device="cpu"),
+                                      crop_left=crop_left,
+                                      compute_dtype=compute_dtype_torch, device="cpu")
+    return jfn, tfn
+
+
+@pytest.mark.parametrize("crop_left", [16, 0])
+def test_make_enhance_fn_fp32_matches_jax(crop_left):
+    jfn, tfn = _both(crop_left, jnp.float32, torch.float32)
+    fr = _frames((2, 48, 80, 4), seed=crop_left)
+    want = np.asarray(jfn(jnp.asarray(fr)))
+    got = tfn(fr).numpy()
+    assert got.shape == fr.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert psnr(got, want) >= 50.0
+    np.testing.assert_array_equal(got[..., 3], 255)
+    np.testing.assert_array_equal(got[:, :, :crop_left, :3], 0)
+
+
+def test_make_enhance_fn_bf16_matches_jax():
+    jfn, tfn = _both(16, jnp.bfloat16, torch.bfloat16, seed=1)
+    fr = _frames((1, 64, 96, 4), seed=5)
+    assert psnr(tfn(fr).numpy(), np.asarray(jfn(jnp.asarray(fr)))) >= 50.0
+
+
+def test_make_enhance_fn_rejects_bad_frames():
+    _, tfn = _both(0, jnp.float32, torch.float32)
+    with pytest.raises(ValueError):
+        tfn(np.zeros((1, 8, 8, 3), np.uint8))
+    with pytest.raises(ValueError):
+        tfn(np.zeros((1, 8, 8, 4), np.float32))
+
+
+@pytest.mark.parametrize("stack", ["model", "k1_plain"])
+def test_whole_slice_full_frame_matches_jax(stack):
+    """enhance_from_onnx on one 576x752 frame, port vs JAX, >= 50 dB. "model"
+    is the port's CPU path (eager forward); "k1_plain" swaps in the plain
+    version of the fused-stack kernel, the function the card runs."""
+    fr = _frames((1, 576, 752, 4), seed=11)
+    want = np.asarray(jax_enhance.enhance_from_onnx(ONNX, donate=False)(jnp.asarray(fr)))
+    if stack == "model":
+        fn = tor_enhance.enhance_from_onnx(ONNX, device="cpu")
+    else:
+        imp = tor_import.import_pix_shuffle(ONNX)
+        fn = tor_enhance.make_enhance_fn(
+            fused_stack_apply_plain, params_from_jax(imp.params, device="cpu"),
+            crop_left=imp.crop_left, srgb_to_linear_exponent=imp.srgb_to_linear_exponent,
+            linear_to_srgb_exponent=imp.linear_to_srgb_exponent, device="cpu")
+    got = fn(fr).numpy()
+    assert got.shape == (1, 576, 752, 4) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got[..., 3], 255)
+    assert psnr(got, want) >= 50.0
+
+
+def test_default_enhance_fn_is_seeded():
+    fn, params = tor_enhance.default_enhance_fn(seed=3, device="cpu", crop_left=0)
+    _, again = tor_enhance.default_enhance_fn(seed=3, device="cpu")
+    assert torch.equal(params["conv1"]["w"], again["conv1"]["w"])
+    out = fn(_frames((1, 16, 24, 4)))
+    assert out.shape == (1, 16, 24, 4) and out.dtype == torch.uint8
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from fs_uae_image_enhancer_project_tpu_torch import resolve_device
+    from fs_uae_image_enhancer_project_tpu_torch.runtime import sidecar
+
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tor_enhance.enhance_from_onnx(ONNX)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tor_enhance.default_enhance_fn()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model("pix_shuffle").init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sidecar.build_enhance_fn()
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_chip_smoke_and_card_tests_import_no_jax():
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "test_torch_cuda.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top != "jax" and top != "jaxlib", (path, mod)
+            assert top != "fs_uae_image_enhancer_project_tpu", (path, mod)
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import fs_uae_image_enhancer_project_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'fs_uae_image_enhancer_project_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No card: exit non-zero and print no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
