@@ -95,6 +95,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fse_fused_stack.restype = i
     lib.fse_fused_stack_smem_bytes.argtypes = []
     lib.fse_fused_stack_smem_bytes.restype = i
+    lib.fse_palette_dither.argtypes = [p] * 4 + [i] * 6 + [ctypes.POINTER(i), i, p]
+    lib.fse_palette_dither.restype = i
 
 
 def load_library() -> ctypes.CDLL:
