@@ -7,21 +7,32 @@ Phases, each printing one JSON line with its wall time:
 1. device     the card (nvidia-smi name and power limit, torch's name)
 2. build      nvcc build of the port's kernels (time, ptxas registers/spills)
 3. k1_parity  the fused-stack kernel (K1) against its plain PyTorch version,
-              shipped weights, seeded inputs, half-res 288x376 and 288x368
-4. k3_parity  the palette-dither kernel (K3) against its plain version, byte
+              shipped weights, seeded inputs, half-res 288x376 and 288x368;
+              two frames in one launch against two launches
+4. k2_parity  the pair-packed fused-stack kernel (K2) the same way, and
+              against K1
+5. k4_parity  the lane-packing kernel (K4) against its plain version at the
+              bench's 12 GEMM shapes, grid 2: the accumulator and the output
+6. k3_parity  the palette-dither kernel (K3) against its plain version, byte
               for byte: 16 lores crops (188x144), one 376x288 crop and one
               ragged crop, N in {2, 32, 256, 1024}, every mode
-5. enhance    8 seeded 576x752 RGBA frames through enhance_from_onnx on cuda
-6. server     the port's frame server at depth 0 and 2 (slice 1's main path):
+7. enhance    8 seeded 576x752 RGBA frames through enhance_from_onnx on cuda
+8. server     the port's frame server at depth 0 and 2 (slice 1's main path):
               every launch counter is set to 0 just before and read just after
-7. datagen    the port's dataset generator (slice 2's main path) on two seeded
+9. datagen    the port's dataset generator (slice 2's main path) on two seeded
               1504x1152 images, 376x288 lores crops, kmeans_torch palettes 64
               and 256, five dithers, device_batch 16, counters from 0; then
               its rerun (nothing to do), k-means on the card against the CPU,
               and the per-crop route against the batched one, PNG for PNG
-8. timing     CUDA-event medians of K1, its plain version, cuDNN, the enhance;
-              of K3, its plain version, cdist + topk, the batched k-means
-9. kernels    every kernel launched, held against its plain version
+10. kernel_bench  the two kernel benches (slice 3's main path), about a
+              second a variant, counters from 0: bench_fused_stack (eager
+              bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
+              12 cases at grid 64)
+11. timing    CUDA-event medians of K1, K2, their plain versions, cuDNN, the
+              enhance; of K4, its plain version and the torch.matmul chain at
+              the 12 cases; of K3, its plain version, cdist + topk, the
+              batched k-means
+12. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -31,6 +42,7 @@ CUDA card; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -46,6 +58,10 @@ K1_SOURCE = "fs_uae_image_enhancer_project_tpu_torch/ops/cuda/csrc/fused_stack.c
 K1_REPLACES = "fs_uae_image_enhancer_project_tpu/ops/pallas/fused_stack.py:204"
 K3_SOURCE = "fs_uae_image_enhancer_project_tpu_torch/ops/cuda/csrc/dither.cu"
 K3_REPLACES = "fs_uae_image_enhancer_project_tpu/ops/pallas/dither.py:49"
+K2_SOURCE = "fs_uae_image_enhancer_project_tpu_torch/ops/cuda/csrc/fused_stack_packed.cu"
+K2_REPLACES = "fs_uae_image_enhancer_project_tpu/ops/pallas/fused_stack_packed.py:162"
+K4_SOURCE = "fs_uae_image_enhancer_project_tpu_torch/ops/cuda/csrc/lane_packing.cu"
+K4_REPLACES = "scripts/bench_lane_packing.py:38"
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, fp32 on the
 # CUDA cores (no tensor cores), HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -58,6 +74,11 @@ LORES = (CROP_H // 2, CROP_W // 2)
 PALETTES = (64, 256)
 DITHERS = ("none", "checkerboard", "bayer2x2", "bayer4x4", "bayer8x8")
 K1_MAX_ABS, K1_MEAN_ABS = 6e-3, 6e-4
+# K4: the accumulator within 1e-3 of max |acc| (mma sums in another order
+# than the plain product); o within 1e-6 (the same fp32 ops on a, the row
+# sum's order aside)
+K4_ACC_REL, K4_O_ABS = 1e-3, 1e-6
+K4_PARITY_GRID, K4_BENCH_GRID = 2, 64
 PSNR_MIN_DB = 50.0
 
 _phase = "start"
@@ -170,6 +191,160 @@ def library_stack(u, sw):
     l5 = conv(l4, 4, 36)
     l6 = F.mish(conv(torch.cat([l1, l5], 1), 5, 36)).clamp(0, 6)
     return bprelu(conv(l6, 6, 12), sc[4], sc[5])[0].permute(1, 2, 0)
+
+
+def stack_parity(dev, stack, plain, sw, other=None) -> list:
+    """A fused-stack kernel (``stack``, K1 or K2) against its plain version on
+    ``dev``: seeded linear-light inputs at half-res 288x376 and 288x368, the
+    max and mean abs error against the plain version's fp32 result, the
+    largest error on the 16-pixel tile seams, and, with ``other`` (another
+    kernel and its weights), the largest difference from it. Then two frames
+    in one launch against the two frames one launch each."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    recs = []
+    for h2, w2 in ((288, 376), (288, 368)):
+        u = (torch.rand(h2, w2, 12, generator=gen) ** 2.2).to(torch.bfloat16).to(dev)
+        y = stack(u, sw).float()
+        ref = plain(u, sw, out_fp32=True)
+        err = (y - ref).abs()
+        row, col = err.amax(dim=(1, 2)), err.amax(dim=(0, 2))
+        seam_r = torch.tensor([r for r in range(h2) if r % 16 in (0, 15)], device=dev)
+        seam_c = torch.tensor([c for c in range(w2) if c % 16 in (0, 15)], device=dev)
+        rec = dict(shape=[h2, w2], max_abs=err.max().item(), mean_abs=err.mean().item(),
+                   seam_row_max=row[seam_r].max().item(), seam_col_max=col[seam_c].max().item(),
+                   right_edge_max=col[-2:].max().item(),
+                   row_max_top5=sorted(row.tolist(), reverse=True)[:5],
+                   finite=bool(torch.isfinite(y).all()))
+        if other is not None:
+            rec["max_abs_vs_other"] = (y - other[0](u, other[1]).float()).abs().max().item()
+        recs.append(rec)
+    pair = (torch.rand(2, 40, 56, 12, generator=gen) ** 2.2).to(torch.bfloat16).to(dev)
+    one_by_one = torch.stack([stack(pair[0].contiguous(), sw), stack(pair[1].contiguous(), sw)])
+    recs.append(dict(shape=[2, 40, 56], batch_equals_frames=bool(torch.equal(stack(pair, sw),
+                                                                            one_by_one))))
+    return recs
+
+
+def check_stack(name: str, recs: list) -> None:
+    for rec in recs[:-1]:
+        check(rec["finite"], f"{name} output not finite at {rec['shape']}")
+        check(rec["max_abs"] <= K1_MAX_ABS, f"{name} max abs {rec['max_abs']} > {K1_MAX_ABS}")
+        check(rec["mean_abs"] <= K1_MEAN_ABS,
+              f"{name} mean abs {rec['mean_abs']} > {K1_MEAN_ABS}")
+    check(recs[-1]["batch_equals_frames"], f"{name}: two frames in one launch differ")
+
+
+def k4_inputs(rng, m: int, k: int, n: int, dev):
+    """The bench's data for one case: a ~ N(0, 1) fp32, w ~ N(0, 0.05) bf16."""
+    import numpy as np
+    import torch
+
+    a = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(np.float32))
+    return a, w.to(torch.bfloat16).to(dev)
+
+
+def k4_errors(got, want) -> dict:
+    """K4's ``(o, acc)`` against the plain version's."""
+    import torch
+
+    (o, acc), (po, pacc) = got, want
+    scale = pacc.abs().max().item()
+    return dict(acc_max_abs=(acc - pacc).abs().max().item(), acc_scale=scale,
+                acc_rel=(acc - pacc).abs().max().item() / scale,
+                o_max_abs=(o - po).abs().max().item(),
+                finite=bool(torch.isfinite(acc).all() and torch.isfinite(o).all()))
+
+
+def k4_parity(dev, grid: int = K4_PARITY_GRID, cases=None) -> list:
+    """K4 against its plain version at the bench's 12 shapes (seeded as the
+    bench seeds them), ``grid`` steps of 8 products."""
+    import numpy as np
+
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import lane_packing as k4
+
+    rng = np.random.default_rng(0)
+    out = []
+    for label, variant, m, k, n in (k4.CASES if cases is None else cases):
+        a, w = k4_inputs(rng, m, k, n, dev)
+        rec = dict(case=f"{label} {variant}", shape=[m, k, n], grid=grid,
+                   **k4_errors(k4.lane_packing_mm(a, w, grid), k4.lane_packing_mm_plain(a, w, grid)))
+        out.append(rec)
+    return out
+
+
+def check_k4(recs: list) -> None:
+    for r in recs:
+        check(r["finite"], f"K4 not finite: {r['case']}")
+        check(r["acc_rel"] <= K4_ACC_REL,
+              f"K4 accumulator {r['acc_rel']} of max|acc| > {K4_ACC_REL}: {r['case']}")
+        check(r["o_max_abs"] <= K4_O_ABS, f"K4 o {r['o_max_abs']} > {K4_O_ABS}: {r['case']}")
+
+
+def library_lane_chain(a, w, grid: int):
+    """K4's chain with torch.matmul on bf16 (cuBLAS): the yardstick timed as
+    library_ms. The port never calls it."""
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda.lane_packing import REPS
+
+    ab = a.to(torch.bfloat16)
+    acc = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32, device=a.device)
+    for _ in range(REPS * grid):
+        acc = torch.matmul(ab, w).float() * 1e-4 + acc * 0.5
+    return a * 0.999 + 1e-7 * acc.sum(dim=1, keepdim=True), acc
+
+
+def kernel_bench(dev, duration_s: float = 1.0, fused_shape=(1, 576, 752, 3), lane_cases=None,
+                 grid: int = K4_BENCH_GRID) -> dict:
+    """Slice 3's main path: the two kernel benches' ``main`` with short
+    windows, every launch counter set to 0 just before and read just after."""
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_packed as k2
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import lane_packing as k4
+    from fs_uae_image_enhancer_project_tpu_torch.scripts import bench_fused_stack, bench_lane_packing
+
+    counters = {"fused_stack": fs.fused_stack, "fused_stack_packed": k2.fused_stack_packed,
+                "lane_packing_mm": k4.lane_packing_mm, "palette_dither": k3.palette_dither}
+    for c in counters.values():
+        c.launches = 0
+    fused = bench_fused_stack.main(duration_s=duration_s, warmup=3, device=dev, shape=fused_shape,
+                                   only="")
+    lane = bench_lane_packing.main(duration_s=duration_s, warmup=2, device=dev, cases=lane_cases,
+                                   grid=grid)
+    return dict(launches={k: c.launches for k, c in counters.items()}, fused=fused, lane=lane)
+
+
+def k4_timing(dev, grid: int = K4_BENCH_GRID, cases=None) -> list:
+    """K4, its plain version and the torch.matmul chain at the 12 cases and
+    ``grid``, CUDA-event medians, with each case's bound from its shape and
+    K4's error against the plain version at this grid."""
+    import numpy as np
+
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import lane_packing as k4
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for label, variant, m, k, n in (k4.CASES if cases is None else cases):
+        a, w = k4_inputs(rng, m, k, n, dev)
+        flops = 2.0 * m * k * n * k4.REPS * grid
+        nbytes = 4 * m * k * 2 + 2 * k * n + 4 * m * n
+        ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+        kern = median_ms(lambda: k4.lane_packing_mm(a, w, grid), n=20, warmup=3)
+        plain = median_ms(lambda: k4.lane_packing_mm_plain(a, w, grid), n=3, warmup=1)
+        lib = median_ms(lambda: library_lane_chain(a, w, grid), n=3, warmup=1)
+        err = k4_errors(k4.lane_packing_mm(a, w, grid), k4.lane_packing_mm_plain(a, w, grid))
+        plan = k4.tile_plan(m, k, n)
+        rows.append(dict(
+            case=f"{label} {variant}", shape=[m, k, n], grid=grid, gflop=flops / 1e9,
+            k4_ms=kern, plain_ms=plain, library_ms=lib, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            share_of_bound=max(ops_ms, bytes_ms) / kern, tflops_raw=flops / kern / 1e9,
+            ctas=plan.ctas, ntw=plan.ntw, smem=plan.smem, **err))
+    return rows
 
 
 def gradient_noise(h: int, w: int, seed: int, sigma: float = 24.0):
@@ -448,10 +623,12 @@ def main() -> int:
     from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import build
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_packed as k2
     from fs_uae_image_enhancer_project_tpu_torch.ops.pixel_shuffle import pixel_unshuffle
     from fs_uae_image_enhancer_project_tpu_torch.runtime.sidecar import (
         SidecarClient, SidecarServer)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     # the plain version is the fp32 reference: no TF32 in cuDNN's convs
     torch.backends.cudnn.allow_tf32 = False
@@ -475,6 +652,7 @@ def main() -> int:
              if any(k in line for k in ("Compiling entry", "registers", "spill", "smem"))]
     emit("build", t0, build_seconds=round(build.build_info["seconds"], 3),
          built=build.build_info["built"], smem_bytes=lib.fse_fused_stack_smem_bytes(),
+         k2_smem_bytes=lib.fse_fused_stack_packed_smem_bytes(),
          ptxas=ptxas)
 
     # 3. k1_parity: shipped weights, seeded linear-light inputs
@@ -483,32 +661,31 @@ def main() -> int:
     imp = import_pix_shuffle(ONNX)
     params = params_from_jax(imp.params, device=dev)
     sw = fs.prepare_weights(params, dev)
-    gen = torch.Generator().manual_seed(0)
-    k1_err, shapes = 0.0, []
-    for h2, w2 in ((288, 376), (288, 368)):
-        u = (torch.rand(h2, w2, 12, generator=gen) ** 2.2).to(torch.bfloat16).to(dev)
-        y = fs.fused_stack(u, sw).float()
-        ref = fs.fused_stack_plain(u, sw, out_fp32=True)
-        torch.cuda.synchronize()
-        err = (y - ref).abs()
-        row, col = err.amax(dim=(1, 2)), err.amax(dim=(0, 2))
-        seam_r = torch.tensor([r for r in range(h2) if r % 16 in (0, 15)])
-        seam_c = torch.tensor([c for c in range(w2) if c % 16 in (0, 15)])
-        rec = dict(shape=[h2, w2], max_abs=err.max().item(), mean_abs=err.mean().item(),
-                   seam_row_max=row[seam_r.to(dev)].max().item(),
-                   seam_col_max=col[seam_c.to(dev)].max().item(),
-                   row_max_top5=sorted(row.tolist(), reverse=True)[:5],
-                   finite=bool(torch.isfinite(y).all()))
-        shapes.append(rec)
-        k1_err = max(k1_err, rec["max_abs"])
+    k1_recs = stack_parity(dev, fs.fused_stack, fs.fused_stack_plain, sw)
     emit("k1_parity", t0, cudnn_allow_tf32=False, tol_max_abs=K1_MAX_ABS,
-         tol_mean_abs=K1_MEAN_ABS, shapes=shapes)
-    for rec in shapes:
-        check(rec["finite"], f"K1 output not finite at {rec['shape']}")
-        check(rec["max_abs"] <= K1_MAX_ABS, f"K1 max abs {rec['max_abs']} > {K1_MAX_ABS}")
-        check(rec["mean_abs"] <= K1_MEAN_ABS, f"K1 mean abs {rec['mean_abs']} > {K1_MEAN_ABS}")
+         tol_mean_abs=K1_MEAN_ABS, shapes=k1_recs)
+    check_stack("K1", k1_recs)
+    k1_err = max(r["max_abs"] for r in k1_recs[:-1])
 
-    # 4. k3_parity: byte equality with the plain version at every N and mode
+    # 4. k2_parity: the same for K2, and K2 against K1
+    _phase = "k2_parity"
+    t0 = time.perf_counter()
+    sw2 = k2.prepare_weights(params, dev)
+    k2_recs = stack_parity(dev, k2.fused_stack_packed, k2.fused_stack_packed_plain, sw2,
+                           other=(fs.fused_stack, sw))
+    emit("k2_parity", t0, matmul_allow_tf32=False, tol_max_abs=K1_MAX_ABS,
+         tol_mean_abs=K1_MEAN_ABS, shapes=k2_recs)
+    check_stack("K2", k2_recs)
+    k2_err = max(r["max_abs"] for r in k2_recs[:-1])
+
+    # 5. k4_parity: the accumulator and the output at the 12 shapes
+    _phase = "k4_parity"
+    t0 = time.perf_counter()
+    k4_recs = k4_parity(dev)
+    emit("k4_parity", t0, tol_acc_rel=K4_ACC_REL, tol_o_abs=K4_O_ABS, cases=k4_recs)
+    check_k4(k4_recs)
+
+    # 6. k3_parity: byte equality with the plain version at every N and mode
     _phase = "k3_parity"
     t0 = time.perf_counter()
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
@@ -517,7 +694,7 @@ def main() -> int:
     emit("k3_parity", t0, **k3_par)
     check(not k3_par["differing"], f"K3 differs from its plain version: {k3_par['differing']}")
 
-    # 5. enhance: the entry point on cuda vs the same run with the plain stack
+    # 7. enhance: the entry point on cuda vs the same run with the plain stack
     _phase = "enhance"
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
@@ -540,7 +717,7 @@ def main() -> int:
     check(min(psnrs) >= PSNR_MIN_DB, f"enhance PSNR {min(psnrs)} dB < {PSNR_MIN_DB}")
     check(rose == 8, f"K1 launches rose by {rose}, not 8")
 
-    # 6. server: slice 1's main path, every counter from 0
+    # 8. server: slice 1's main path, every counter from 0
     _phase = "server"
     t0 = time.perf_counter()
     fs.fused_stack.launches = 0
@@ -577,7 +754,7 @@ def main() -> int:
     check(launches["fused_stack"] > 0, "the server ran without launching K1")
     emit("server", t0, launches=launches, **served)
 
-    # 7. datagen: slice 2's main path, every counter from 0
+    # 9. datagen: slice 2's main path, every counter from 0
     _phase = "datagen"
     t0 = time.perf_counter()
     dg = datagen(dev)
@@ -595,7 +772,17 @@ def main() -> int:
     check(dg["percrop_files_differing_from_batched"] == 0,
           "the per-crop route's PNGs differ from the batched run's")
 
-    # 8. timing at the main paths' shapes
+    # 10. kernel_bench: slice 3's main path, every counter from 0
+    _phase = "kernel_bench"
+    t0 = time.perf_counter()
+    kb = kernel_bench(dev)
+    emit("kernel_bench", t0, **kb)
+    for name in ("fused_stack", "fused_stack_packed", "lane_packing_mm"):
+        check(kb["launches"][name] > 0, f"the kernel benches ran without launching {name}")
+    for rec in kb["fused"]:
+        check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
+
+    # 11. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -605,6 +792,9 @@ def main() -> int:
     k1_ms = median_ms(lambda: fs.fused_stack(u, sw))
     plain_ms = median_ms(lambda: fs.fused_stack_plain(u, sw))
     library_ms = median_ms(lambda: library_stack(u, sw))
+    k2_ms = median_ms(lambda: k2.fused_stack_packed(u, sw2))
+    k2_plain_ms = median_ms(lambda: k2.fused_stack_packed_plain(u, sw2), n=10)
+    k1_again_ms = median_ms(lambda: fs.fused_stack(u, sw))
     frame_dev = torch.from_numpy(frames[:1]).to(dev)
     enhance_ms = median_ms(lambda: enhance(frame_dev))
     flops = 2.0 * fs.MACS_PER_PIXEL * h2 * w2
@@ -614,18 +804,22 @@ def main() -> int:
     ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
 
+    k4_rows = k4_timing(dev)
+    check_k4(k4_rows)
+    k4_ref = next(r for r in k4_rows if r["case"] == "l4-class baseline")
     k3_rows, kmeans_ms = k3_timing(dev, dg["arrs"], dg["stacks"])
     k3_ref = next(r for r in k3_rows if r["n"] == 256 and r["mode"] == "bayer4x4")
     check(all(r["equal_to_plain"] for r in k3_rows),
           "K3 differs from its plain version on the generator's crops and palettes")
     emit("timing", t0, shape=[h2, w2, 12], gflop=flops / 1e9, mbytes=nbytes / 1e6,
-         k1_ms=k1_ms, bound_ms=bound_ms, share_of_bound=bound_ms / k1_ms,
-         plain_ms=plain_ms, library_ms=library_ms, enhance_ms_per_frame=enhance_ms,
+         k1_ms=k1_ms, k1_again_ms=k1_again_ms, bound_ms=bound_ms, share_of_bound=bound_ms / k1_ms,
+         plain_ms=plain_ms, library_ms=library_ms, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+         k2_share_of_bound=bound_ms / k2_ms, k4=k4_rows, enhance_ms_per_frame=enhance_ms,
          enhance_fps=1e3 / enhance_ms, k3_shape=list(dg["arrs"].shape), k3=k3_rows,
          kmeans_ms=kmeans_ms, datagen_styled_crops_per_s=dg["styled_crops_per_s"],
          nvidia_smi=smi)
 
-    # 9. kernels
+    # 12. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
@@ -640,7 +834,22 @@ def main() -> int:
              ms=k3_ref["k3_ms"],
              kernel_ms=k3_ref["k3_ms"], plain_ms=k3_ref["plain_ms"],
              bound_ms=k3_ref["bound_ms"], bound_by=k3_ref["bound_by"],
-             library_ms=k3_ref["library_ms"])]
+             library_ms=k3_ref["library_ms"]),
+        dict(name="fused_stack_packed", route="cuda", source=K2_SOURCE, replaces=K2_REPLACES,
+             counterpart="ops/pallas/fused_stack_packed.py::_stack_kernel",
+             at="one frame, half-res 288x376x12; bound and library as K1's (the same function)",
+             launches=kb["launches"]["fused_stack_packed"], max_abs_err=k2_err, ms=k2_ms,
+             kernel_ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=bound_ms,
+             bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms),
+        dict(name="lane_packing_mm", route="cuda", source=K4_SOURCE, replaces=K4_REPLACES,
+             counterpart="scripts/bench_lane_packing.py::_mm_kernel",
+             at=f"l4-class baseline (9216,648)x(648,72), grid {K4_BENCH_GRID}; every case "
+                "in the timing phase",
+             launches=kb["launches"]["lane_packing_mm"], max_abs_err=k4_ref["acc_max_abs"],
+             ms=k4_ref["k4_ms"], kernel_ms=k4_ref["k4_ms"], plain_ms=k4_ref["plain_ms"],
+             bound_ms=k4_ref["bound_ms"], bound_by=k4_ref["bound_by"],
+             library_ms=k4_ref["library_ms"])]
+    emit("done", t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

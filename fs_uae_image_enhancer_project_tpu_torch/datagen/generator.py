@@ -22,10 +22,11 @@ items (generator.py:597-606 semantics). Filenames use the shared codec in
 
 The port of the JAX package's ``datagen/generator.py``: the same spec diff,
 idempotence, orphan cleanup, SIGINT boundaries, quotas and CLI spelling. The
-styled phase's device route (``quantize_backend='device'``, the default)
-runs the palette dither through the CUDA kernel K3 on ``device`` (default
-``cuda``), per crop or, with ``device_batch > 0``, batched per (style combo,
-spec chunk) in :mod:`.device_batch`; ``'numpy'`` is the host route.
+styled phase's host route (``quantize_backend='numpy'``) is the default, as
+in the JAX package; the device route (``'device'``, opt-in as ``'pallas'`` is
+there) runs the palette dither through the CUDA kernel K3 on ``device``
+(default ``cuda``), per crop or, with ``device_batch > 0``, batched per
+(style combo, spec chunk) in :mod:`.device_batch`.
 """
 from __future__ import annotations
 
@@ -112,10 +113,12 @@ class GeneratorConfig:
     # code upstream, kept as an opt-in because it yields ~1.5x more crops)
     grid: str = "tile"
     palette_algorithm: str = "kmeans"
-    # 'device' (default: K3 for the vectorizable dither families, on
-    # ``device``; best with workers=1 or device_batch>0, one process owning
-    # the card) or 'numpy' (the host route, multi-process friendly)
-    quantize_backend: str = "device"
+    # 'numpy' (default, as in the JAX package: the host route, multi-process
+    # friendly) or 'device' (opt-in, as 'pallas' is in the JAX package: K3
+    # for the vectorizable dither families, on ``device``; best with
+    # workers=1 or device_batch>0, one process owning the card). The two
+    # routes agree on most pixels, not all, so a corpus is made with one
+    quantize_backend: str = "numpy"
     # >0 with quantize_backend='device': run the styled phase in-process in
     # spec-chunks of this size — ONE batched device call per (style, chunk)
     # for palettes and dithering instead of one per crop, with base-crop
@@ -757,11 +760,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "'overlap' is the centered 20%%-overlap grid "
                          "(~1.5x more crops)")
     ap.add_argument("--palette_algorithm", default="kmeans")
-    ap.add_argument("--quantize_backend", default="device",
-                    choices=VALID_BACKENDS,
-                    help="'device' (default) runs vectorizable dithers through "
-                         "the CUDA kernel (use with --workers 1 or "
-                         "--device_batch); 'numpy' is the host route")
+    ap.add_argument("--quantize_backend", default="numpy", choices=VALID_BACKENDS,
+                    help="'numpy' (default) is the host route; 'device' runs "
+                         "vectorizable dithers through the CUDA kernel (use "
+                         "with --workers 1 or --device_batch)")
     ap.add_argument("--device_batch", type=int, default=0,
                     help="with --quantize_backend device: styled-phase "
                          "spec-chunk size for batched on-device palette + "

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils.threefry import randint
 
 # ---------------------------------------------------------------------------
 # Dither matrices and diffusion maps (public constants, quantize.py:334-390)
@@ -251,7 +252,7 @@ def _first_index(n: int, seed: int, first_index: Optional[int]) -> int:
         if not 0 <= first_index < n:
             raise ValueError(f"first_index {first_index} is outside 0..{n - 1}")
         return int(first_index)
-    return int(torch.randint(0, n, (), generator=torch.Generator().manual_seed(seed)))
+    return randint(seed, n)
 
 
 def generate_palettes_kmeans_torch_batch(
@@ -264,11 +265,10 @@ def generate_palettes_kmeans_torch_batch(
     ``generate_palettes_kmeans_jax_batch``; every crop starts from the same
     first index, as the JAX vmap shares one key.
 
-    ``first_index`` is the index of the first centre. The JAX package draws
-    it from ``jax.random.randint(jax.random.key(seed), (), 0, N)``, which
-    torch cannot reproduce: given that index the palettes are the JAX ones.
-    Without it the index is drawn from a ``torch.Generator`` seeded with
-    ``seed`` (deterministic, but another index than JAX's). Centres are
+    ``first_index`` is the index of the first centre. Without it the index
+    is the JAX package's draw, ``jax.random.randint(jax.random.key(seed), (),
+    0, N)``, computed without jax (``utils.threefry.randint``), so the
+    palettes are the JAX ones. Centres are
     clipped to [0, 255] and truncated to uint8, as the JAX function does.
     This is plain tensor code, not a kernel.
     """

@@ -6,13 +6,12 @@ and HWIO conv weights. So the bridge is a conversion of leaves: numpy arrays
 run both packages on the same weights.
 
 Seeds do not cross: ``jax.random`` and ``torch.Generator`` give different
-numbers from one seed. Where the port draws what the JAX package draws, the
-port takes the drawn value itself. The k-means palettes are the one case so
-far: the JAX package starts from point
-``jax.random.randint(jax.random.key(seed), (), 0, N)`` of each crop; the
-port's ``datagen.quantize.generate_palettes_kmeans_torch_batch`` takes that
-index as ``first_index`` (a test computes it with jax and hands it in), and
-without it draws one from ``torch.Generator().manual_seed(seed)``.
+numbers from one seed. Where the port must draw what the JAX package draws,
+it computes JAX's draw itself. The k-means palettes are the one case so far:
+the JAX package starts from point
+``jax.random.randint(jax.random.key(seed), (), 0, N)`` of each crop, and the
+port's ``datagen.quantize.generate_palettes_kmeans_torch_batch`` computes the
+same index with ``utils.threefry.randint`` (or takes it as ``first_index``).
 """
 from __future__ import annotations
 

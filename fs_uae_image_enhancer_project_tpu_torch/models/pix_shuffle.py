@@ -129,15 +129,32 @@ def apply_with_intermediates(params: Params, x: torch.Tensor, cfg: PixShuffleCon
 def apply(params: Params, x: torch.Tensor, cfg: PixShuffleConfig) -> torch.Tensor:
     """Forward pass. x: (N, H, W, 3) linear-light float in [0, 1]-ish range.
 
-    CPU tensor: the eager forward in ``x.dtype``. CUDA tensor: the fused
-    stack kernel (bf16 compute, fp32 accumulation), which raises
-    ``ValueError`` for a config or shape it does not take.
+    The route:
+    - a CUDA tensor in bf16 with the lightweight config (the deployed path):
+      the fused-stack kernel K1 (bf16 compute, fp32 accumulation, one launch
+      for the batch), which raises ``ValueError`` for a shape it does not
+      take (H or W odd);
+    - anything else, on either device (another config, fp32 or another
+      dtype, a CPU tensor): :func:`apply_eager`, the reference's own route.
     """
-    if x.is_cuda:
+    if x.is_cuda and x.dtype == torch.bfloat16 and cfg == lightweight_config():
         from ..ops.cuda.fused_stack import fused_stack_apply
 
         return fused_stack_apply(params, x, cfg=cfg)
-    return _forward(params, x, cfg, lambda _tag, t: t)
+    return apply_eager(params, x, cfg)
+
+
+def apply_eager(params: Params, x: torch.Tensor, cfg: PixShuffleConfig) -> torch.Tensor:
+    """The eager forward in ``x.dtype`` on any device (cuDNN's convolutions on
+    a card). Its convolutions run with TF32 off
+    (``torch.backends.cudnn.allow_tf32`` is set to False for the call and
+    restored after), so that fp32 is fp32 on a card, as in the JAX package."""
+    keep = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _forward(params, x, cfg, lambda _tag, t: t)
+    finally:
+        torch.backends.cudnn.allow_tf32 = keep
 
 
 def _forward(params: Params, x: torch.Tensor, cfg: PixShuffleConfig, tap):

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The ``.cu`` sources under ``csrc/`` have a plain C interface and include no
-PyTorch header, so one ``nvcc`` call builds them in seconds. The library goes
-to ``build/torch_kernels/<content-hash>/libfse_kernels.so`` under the repo
-root, built at first use. The build writes to a temporary name and
-``os.replace``-s it into place, so a build that is cut off leaves neither a
-half-written library nor a lock. Any failure raises.
+PyTorch header. Each is compiled by its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects: seconds in all. The
+library goes to ``build/torch_kernels/<content-hash>/libfse_kernels.so`` under
+the repo root, built at first use. The build writes to temporary names and
+``os.replace``-s the library into place, so a build that is cut off leaves
+neither a half-written library nor a lock. Any failure raises.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_ROOT = os.path.join(REPO_ROOT, "build", "torch_kernels")
 LIB_NAME = "libfse_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 BUILD_TIMEOUT_S = 180
 
 _lock = threading.Lock()
@@ -41,7 +43,7 @@ def _sources():
 
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -57,31 +59,57 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run(cmds, deadline: float) -> str:
+    """Run the commands in parallel, each in its own process group (on
+    timeout the compiler's children, cicc and ptxas, die too instead of
+    holding the output pipes open past the limit). Returns their stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for c in cmds]
+    logs, failed = [], None
+    try:
+        for proc, cmd in zip(procs, cmds):
+            try:
+                _, stderr = proc.communicate(timeout=max(deadline - time.perf_counter(), 0.1))
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s") from e
+            logs.append(stderr)
+            if proc.returncode != 0 and failed is None:
+                failed = f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{stderr[-8000:]}"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 def build(out: str) -> None:
-    """Compile every ``csrc/*.cu`` into ``out`` (one nvcc call)."""
+    """Compile every ``csrc/*.cu`` into ``out``: one nvcc per source, in
+    parallel, then one link."""
     nvcc = _nvcc()
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    tag = f"tmp{os.getpid()}"
+    sources = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{out}.{os.path.basename(s)}.{tag}.o" for s in sources]
+    tmp = f"{out}.{tag}"
     t0 = time.perf_counter()
-    # own process group: on timeout the compiler's children (cicc, ptxas) die
-    # too, instead of holding the output pipes open past the limit
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, start_new_session=True)
+    deadline = t0 + BUILD_TIMEOUT_S
     try:
-        _, stderr = proc.communicate(timeout=BUILD_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s") from e
-    finally:
-        if os.path.exists(tmp) and proc.returncode != 0:
+        stderr = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(sources, objs)],
+                      deadline)
+        _run([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]], deadline)
+    except BaseException:
+        if os.path.exists(tmp):
             os.unlink(tmp)
+        raise
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.unlink(o)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{stderr[-8000:]}")
-    log_tmp = f"{out}.ptxas.tmp{os.getpid()}"
+    log_tmp = f"{out}.ptxas.{tag}"
     with open(log_tmp, "w") as f:
         f.write(stderr)
     os.replace(log_tmp, out + ".ptxas.log")
@@ -91,10 +119,13 @@ def build(out: str) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fse_fused_stack.argtypes = [p] * 10 + [i, i, i, p]
-    lib.fse_fused_stack.restype = i
-    lib.fse_fused_stack_smem_bytes.argtypes = []
-    lib.fse_fused_stack_smem_bytes.restype = i
+    for name in ("fse_fused_stack", "fse_fused_stack_packed"):
+        getattr(lib, name).argtypes = [p] * 10 + [i, i, i, i, p]
+        getattr(lib, name).restype = i
+        getattr(lib, name + "_smem_bytes").argtypes = []
+        getattr(lib, name + "_smem_bytes").restype = i
+    lib.fse_lane_packing.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.fse_lane_packing.restype = i
     lib.fse_palette_dither.argtypes = [p] * 4 + [i] * 6 + [ctypes.POINTER(i), i, p]
     lib.fse_palette_dither.restype = i
 

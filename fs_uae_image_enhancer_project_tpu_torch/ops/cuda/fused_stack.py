@@ -2,10 +2,11 @@
 
 Counterpart of ``fs_uae_image_enhancer_project_tpu/ops/pallas/fused_stack.py``
 (``_stack_kernel`` via ``_run_stack``, entry ``fused_stack_apply``). The
-kernel (``csrc/fused_stack.cu``) maps the unshuffled half-resolution frame
-``(H/2, W/2, 12)`` bf16 to ``(H/2, W/2, 12)`` bf16 through all seven convs,
-accumulating in fp32. The wrapper does the rest in torch: unshuffle, bf16
-cast, shuffle, ``+identity`` and relu.
+kernel (``csrc/fused_stack.cu``) maps unshuffled half-resolution frames
+``(H/2, W/2, 12)`` or ``(N, H/2, W/2, 12)`` bf16 to the same shape through
+all seven convs, accumulating in fp32; one launch takes the whole batch. The
+wrapper does the rest in torch: unshuffle, bf16 cast, shuffle, ``+identity``
+and relu.
 
 - :func:`fused_stack` is the kernel's wrapper. A CUDA tensor launches the
   kernel (or raises); a CPU tensor takes :func:`fused_stack_plain`. Its
@@ -20,6 +21,9 @@ cast, shuffle, ``+identity`` and relu.
 - :func:`prepare_weights` is the counterpart of ``_prep_weights``: it lays the
   conv weights out in mma.sync B-fragment order and packs biases and
   activation parameters into one fp32 vector.
+- :func:`stack_plain`, :func:`check_input`, :func:`launch_stack`,
+  :func:`apply_stack` and :func:`cached` are shared with K2
+  (``fused_stack_packed.py``), which differs only in the GEMM's form.
 
 Unlike the JAX entry point there is no ``fallback``: a config other than the
 lightweight one, or a shape the kernel does not take, raises ``ValueError``.
@@ -65,8 +69,9 @@ MACS_PER_PIXEL = 9 * (12 * 36 + 36 * 36 + 36 * 72 + 72 * 72 + 72 * 36 + 72 * 36 
 
 
 class StackWeights(NamedTuple):
-    """Prepared weights: B-fragment bf16 arrays for the kernel, bf16-rounded
-    fp32 OIHW weights for the plain version, and the packed fp32 vector."""
+    """Prepared weights: B-fragment bf16 arrays for the kernel, the plain
+    version's bf16-rounded fp32 weights (OIHW for K1, the pair-packed
+    matrices of each source for K2), and the packed fp32 vector."""
 
     frags: Tuple[torch.Tensor, ...]
     plain: Tuple[torch.Tensor, ...]
@@ -81,37 +86,47 @@ def supports_config(cfg) -> bool:
     return cfg == lightweight_config()
 
 
-def _fragments(w: torch.Tensor, sources, cout: int, cout_pad: int) -> torch.Tensor:
-    """(3, 3, cin, cout) fp32 HWIO -> flat bf16 [kstep][ntile][lane][4]."""
-    rows, c0 = [], 0
-    for cin, cin_pad in sources:
-        ws = F.pad(w[:, :, c0:c0 + cin, :], (0, cout_pad - cout, 0, cin_pad - cin))
-        rows.append(ws.reshape(9 * cin_pad, cout_pad))  # k = (dy*3+dx)*cin_pad + c
-        c0 += cin
-    k = torch.cat(rows)
+def fragments(k: torch.Tensor) -> torch.Tensor:
+    """A (K, N) fp32 GEMM weight, N a multiple of 8 -> flat bf16
+    [kstep][ntile][lane][4], the mma.sync m16n8k16 B-fragment order (K padded
+    with zero rows to a multiple of 16)."""
     if k.shape[0] % 16:
         k = F.pad(k, (0, 0, 0, 16 - k.shape[0] % 16))
-    ks, nt = k.shape[0] // 16, cout_pad // 8
+    ks, nt = k.shape[0] // 16, k.shape[1] // 8
     # k = s*16 + khalf*8 + t*2 + pair, n = ntile*8 + g; lane = g*4 + t holds
     # (k 2t, 2t+1, 2t+8, 2t+9) of column g: the m16n8k16 B fragment
     f = k.reshape(ks, 2, 4, 2, nt, 8).permute(0, 4, 5, 2, 1, 3)
     return f.contiguous().to(torch.bfloat16).reshape(-1)
 
 
-def prepare_weights(params: Params, device) -> StackWeights:
-    """Lay out the lightweight model's parameters for the kernel and its plain
-    version, on ``device``."""
+def _fragments(w: torch.Tensor, sources, cout: int, cout_pad: int) -> torch.Tensor:
+    """(3, 3, cin, cout) fp32 HWIO -> K1's B fragments, k = (dy*3+dx)*cin_pad + c
+    per source, the sources' rows one after the other."""
+    rows, c0 = [], 0
+    for cin, cin_pad in sources:
+        ws = F.pad(w[:, :, c0:c0 + cin, :], (0, cout_pad - cout, 0, cin_pad - cin))
+        rows.append(ws.reshape(9 * cin_pad, cout_pad))
+        c0 += cin
+    return fragments(torch.cat(rows))
+
+
+def conv_weights(params: Params):
+    """The seven conv weights as fp32 HWIO tensors on the CPU, shapes checked."""
+    out = []
+    for name, sources, cout, _ in LAYERS:
+        w = torch.as_tensor(params[name]["w"]).detach().to("cpu", torch.float32)
+        if tuple(w.shape) != (3, 3, sum(c for c, _ in sources), cout):
+            raise ValueError(f"{name} weight has shape {tuple(w.shape)}")
+        out.append(w)
+    return out
+
+
+def param_vector(params: Params) -> torch.Tensor:
+    """Biases and activation parameters packed into the fp32 vector the
+    kernels read (``PARAM_LAYOUT``), on the CPU."""
 
     def t(slot, leaf):
         return torch.as_tensor(params[slot][leaf]).detach().to("cpu", torch.float32)
-
-    frags, plain = [], []
-    for name, sources, cout, cout_pad in LAYERS:
-        w = t(name, "w")
-        if tuple(w.shape) != (3, 3, sum(c for c, _ in sources), cout):
-            raise ValueError(f"{name} weight has shape {tuple(w.shape)}")
-        frags.append(_fragments(w, sources, cout, cout_pad))
-        plain.append(w.to(torch.bfloat16).float().permute(3, 2, 0, 1).contiguous())
 
     def vec(slot, leaf, n):
         v = t(slot, leaf).reshape(-1)
@@ -129,37 +144,53 @@ def prepare_weights(params: Params, device) -> StackWeights:
     prm = torch.cat([F.pad(parts[name], (0, n - parts[name].numel()))
                      for name, n in PARAM_LAYOUT])
     assert prm.numel() == PARAM_TOTAL
+    return prm
+
+
+def prepare_weights(params: Params, device) -> StackWeights:
+    """Lay out the lightweight model's parameters for the kernel and its plain
+    version, on ``device``."""
+
+    frags, plain = [], []
+    for (_name, sources, cout, cout_pad), w in zip(LAYERS, conv_weights(params)):
+        frags.append(_fragments(w, sources, cout, cout_pad))
+        plain.append(w.to(torch.bfloat16).float().permute(3, 2, 0, 1).contiguous())
     return StackWeights(
         tuple(f.to(device) for f in frags),
         tuple(w.to(device) for w in plain),
-        prm.to(device),
+        param_vector(params).to(device),
     )
 
 
-_PREP_CACHE: dict = {}
-
-
-def prepare_weights_cached(params: Params, device) -> StackWeights:
-    """:func:`prepare_weights`, cached for the last parameter set. Keyed on the
-    identity and version counter of every leaf, so replacing a leaf or
+def cached(prepare):
+    """``prepare(params, device)`` cached for the last parameter set. Keyed on
+    the identity and version counter of every leaf, so replacing a leaf or
     updating one in place both invalidate the entry."""
-    leaves = []
+    cache: dict = {}
 
-    def walk(node):
-        for k in sorted(node):
-            v = node[k]
-            walk(v) if isinstance(v, dict) else leaves.append(v)
+    def prepare_cached(params: Params, device):
+        leaves = []
 
-    walk(params)
-    key = (str(torch.device(device)),) + tuple(
-        (id(v), getattr(v, "_version", 0)) for v in leaves)
-    hit = _PREP_CACHE.get(key)
-    if hit is None:
-        _PREP_CACHE.clear()
-        # keep the leaves alive so that their ids cannot be reused
-        hit = (leaves, prepare_weights(params, device))
-        _PREP_CACHE[key] = hit
-    return hit[1]
+        def walk(node):
+            for k in sorted(node):
+                v = node[k]
+                walk(v) if isinstance(v, dict) else leaves.append(v)
+
+        walk(params)
+        key = (str(torch.device(device)),) + tuple(
+            (id(v), getattr(v, "_version", 0)) for v in leaves)
+        hit = cache.get(key)
+        if hit is None:
+            cache.clear()
+            # keep the leaves alive so that their ids cannot be reused
+            hit = (leaves, prepare(params, device))
+            cache[key] = hit
+        return hit[1]
+
+    return prepare_cached
+
+
+prepare_weights_cached = cached(prepare_weights)
 
 
 def _prm(prm: torch.Tensor, name: str) -> torch.Tensor:
@@ -167,22 +198,21 @@ def _prm(prm: torch.Tensor, name: str) -> torch.Tensor:
     return prm[o:o + n]
 
 
-def fused_stack_plain(u: torch.Tensor, sw: StackWeights, *, out_fp32: bool = False) -> torch.Tensor:
-    """The kernel's function in eager torch, on any device.
+def stack_plain(u: torch.Tensor, prm: torch.Tensor, conv, *, out_fp32: bool = False) -> torch.Tensor:
+    """The stack's function in eager torch around ``conv(i, *sources)``, which
+    returns conv ``i`` (0-6) over the channel concat of its NCHW fp32 sources,
+    bias added. Shared by K1's and K2's plain versions, which differ only in
+    how they form the conv: fp32 activations, each layer's output rounded to
+    bf16 where the kernels store it in shared memory.
 
-    u: (H2, W2, 12) bf16. Returns (H2, W2, 12) bf16, or the fp32 result before
-    the output cast with ``out_fp32=True``. On a card, set
-    ``torch.backends.cudnn.allow_tf32 = False`` for a full-fp32 reference.
+    u: (H2, W2, 12) or (N, H2, W2, 12) bf16. Returns the same shape in bf16,
+    or the fp32 result before the output cast with ``out_fp32=True``.
     """
-    p = sw.prm
-    sc = _prm(p, "scalars")
+    sc = _prm(prm, "scalars")
     a1a, a1b, a2a, a2b, p7b, p7s = (sc[i] for i in range(6))
 
     def ch(name, n):  # per-channel vector broadcast over NCHW
-        return _prm(p, name)[:n].view(1, n, 1, 1)
-
-    def conv(x, i, cout):
-        return F.conv2d(x, sw.plain[i], _prm(p, f"b{i + 1}")[:cout], padding=1)
+        return _prm(prm, name)[:n].view(1, n, 1, 1)
 
     def rb(x):  # where the kernel stores a layer's output in shared memory
         return x.to(torch.bfloat16).float()
@@ -200,53 +230,79 @@ def fused_stack_plain(u: torch.Tensor, sw: StackWeights, *, out_fp32: bool = Fal
     def mish(x):
         return x * torch.tanh(F.softplus(x))
 
-    x = u.float().permute(2, 0, 1)[None]
-    l1 = rb(relu6(sinlu(conv(x, 0, 36), a1a, a1b)))
-    t = conv(l1, 1, 36)
+    x = (u[None] if u.dim() == 3 else u).float().permute(0, 3, 1, 2)
+    l1 = rb(relu6(sinlu(conv(0, x), a1a, a1b)))
+    t = conv(1, l1)
     t = t * torch.tanh(torch.exp(t)) + l1
     l2 = rb(bprelu(sinlu(t, a2a, a2b), ch("p2b", 36), ch("p2s", 36)))
-    l3 = rb(conv(l2, 2, 72))
-    t = bprelu(mish(conv(l3, 3, 72)), ch("p4b", 72), ch("p4s", 72)) + l3
+    l3 = rb(conv(2, l2))
+    t = bprelu(mish(conv(3, l3)), ch("p4b", 72), ch("p4s", 72)) + l3
     l4 = rb(torch.relu(torch.tanh(t)))
-    l5 = rb(conv(l4, 4, 36))
-    l6 = rb(relu6(mish(conv(torch.cat([l1, l5], dim=1), 5, 36))))
-    y = bprelu(conv(l6, 6, 12), p7b, p7s)[0].permute(1, 2, 0).contiguous()
+    l5 = rb(conv(4, l4))
+    l6 = rb(relu6(mish(conv(5, l1, l5))))
+    y = bprelu(conv(6, l6), p7b, p7s).permute(0, 2, 3, 1).contiguous()
+    y = y[0] if u.dim() == 3 else y
     return y if out_fp32 else y.to(torch.bfloat16)
 
 
-def _check(u: torch.Tensor, sw: StackWeights) -> None:
-    if u.dtype != torch.bfloat16 or u.dim() != 3 or u.shape[2] != 12:
-        raise ValueError(f"fused_stack takes (H2, W2, 12) bf16, got {u.dtype} {tuple(u.shape)}")
+def fused_stack_plain(u: torch.Tensor, sw: StackWeights, *, out_fp32: bool = False) -> torch.Tensor:
+    """K1's function in eager torch, on any device: :func:`stack_plain` with
+    ``F.conv2d`` in fp32 on the bf16-rounded weights. On a card, set
+    ``torch.backends.cudnn.allow_tf32 = False`` for a full-fp32 reference.
+    """
+    def conv(i, *srcs):
+        cout = sw.plain[i].shape[0]
+        return F.conv2d(torch.cat(srcs, dim=1), sw.plain[i], _prm(sw.prm, f"b{i + 1}")[:cout],
+                        padding=1)
+
+    return stack_plain(u, sw.prm, conv, out_fp32=out_fp32)
+
+
+def check_input(u: torch.Tensor, sw: StackWeights, name: str = "fused_stack") -> None:
+    """Raise ``ValueError`` for an input the stack kernels do not take."""
+    if u.dtype != torch.bfloat16 or u.dim() not in (3, 4) or u.shape[-1] != 12:
+        raise ValueError(f"{name} takes (H2, W2, 12) or (N, H2, W2, 12) bf16, "
+                         f"got {u.dtype} {tuple(u.shape)}")
     if not u.is_contiguous() or u.data_ptr() % 16:
-        raise ValueError("fused_stack takes a contiguous, 16-byte aligned input")
-    if u.shape[0] < 1 or u.shape[1] < 1:
-        raise ValueError(f"fused_stack got an empty frame {tuple(u.shape)}")
+        raise ValueError(f"{name} takes a contiguous, 16-byte aligned input")
+    if min(u.shape[:-1]) < 1 or (u.dim() == 4 and u.shape[0] > 65535):
+        raise ValueError(f"{name} got an empty frame or too many frames {tuple(u.shape)}")
     for t in (*sw.frags, sw.prm):
         if t.device != u.device or not t.is_contiguous():
             raise ValueError("prepared weights must be contiguous and on the input's device")
 
 
+
+def launch_stack(entry: str, u: torch.Tensor, sw: StackWeights) -> torch.Tensor:
+    """Launch the C entry point ``entry`` (K1 or K2) on ``u`` on the current
+    stream; raises if the launch fails."""
+    from .build import load_library
+
+    lib = load_library()
+    out = torch.empty_like(u)
+    frames = 1 if u.dim() == 3 else u.shape[0]
+    rc = getattr(lib, entry)(
+        u.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in sw.frags), sw.prm.data_ptr(),
+        frames, u.shape[-3], u.shape[-2], u.device.index,
+        torch.cuda.current_stream(u.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def fused_stack(u: torch.Tensor, sw: StackWeights) -> torch.Tensor:
-    """K1's wrapper: (H2, W2, 12) bf16 -> (H2, W2, 12) bf16.
+    """K1's wrapper: (H2, W2, 12) or (N, H2, W2, 12) bf16 -> the same shape.
 
     A CUDA tensor launches the kernel on the current stream (no synchronise,
-    no allocation inside the kernel); a CPU tensor takes the plain version.
+    no allocation inside the kernel; one launch for the whole batch); a CPU
+    tensor takes the plain version.
     """
     if u.device.type == "cpu":
         return fused_stack_plain(u, sw)
     if u.device.type != "cuda":
         raise ValueError(f"fused_stack runs on cuda or cpu, got {u.device}")
-    _check(u, sw)
-    from .build import load_library
-
-    lib = load_library()
-    out = torch.empty_like(u)
-    rc = lib.fse_fused_stack(
-        u.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in sw.frags), sw.prm.data_ptr(),
-        u.shape[0], u.shape[1], u.device.index,
-        torch.cuda.current_stream(u.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_stack kernel launch failed: CUDA error {rc}")
+    check_input(u, sw, "fused_stack")
+    out = launch_stack("fse_fused_stack", u, sw)
     fused_stack.launches += 1
     return out
 
@@ -254,33 +310,35 @@ def fused_stack(u: torch.Tensor, sw: StackWeights) -> torch.Tensor:
 fused_stack.launches = 0
 
 
-def _check_model_input(x: torch.Tensor, cfg) -> None:
+def check_model_input(x: torch.Tensor, cfg) -> None:
     if not supports_config(cfg):
         raise ValueError("the fused stack takes the lightweight pix_shuffle config only")
-    if x.dim() != 4 or x.shape[0] != 1 or x.shape[3] != 3 or x.shape[1] % 2 or x.shape[2] % 2:
+    if x.dim() != 4 or x.shape[0] < 1 or x.shape[3] != 3 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(
-            f"the fused stack takes (1, H, W, 3) with H and W even, got {tuple(x.shape)}")
+            f"the fused stack takes (N, H, W, 3) with H and W even, got {tuple(x.shape)}")
 
 
-def _apply(stack, params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def apply_stack(stack, prepare, params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The model's forward with ``stack(u, prepare(params, device))`` between
+    pixel-unshuffle and pixel-shuffle: (N, H, W, 3) -> (N, H, W, 3)."""
     from ...models.pix_shuffle import lightweight_config
 
     cfg = lightweight_config() if cfg is None else cfg
-    _check_model_input(x, cfg)
-    sw = prepare_weights_cached(params, x.device)
-    u = pixel_unshuffle(x, 2)[0].to(torch.bfloat16).contiguous()
-    y = pixel_shuffle(stack(u, sw)[None].to(x.dtype), 2)
+    check_model_input(x, cfg)
+    sw = prepare(params, x.device)
+    u = pixel_unshuffle(x, 2).to(torch.bfloat16).contiguous()
+    y = pixel_shuffle(stack(u, sw).to(x.dtype), 2)
     return torch.relu(x + y)
 
 
 def fused_stack_apply(params: Params, x: torch.Tensor, *, cfg=None) -> torch.Tensor:
     """Drop-in for ``models.pix_shuffle.apply`` (lightweight config):
-    (1, H, W, 3) linear float -> (1, H, W, 3), through the kernel on a CUDA
-    tensor and through its plain version on a CPU tensor."""
-    return _apply(fused_stack, params, x, cfg)
+    (N, H, W, 3) linear float -> (N, H, W, 3), with bf16 compute through the
+    kernel on a CUDA tensor and through its plain version on a CPU tensor."""
+    return apply_stack(fused_stack, prepare_weights_cached, params, x, cfg)
 
 
 def fused_stack_apply_plain(params: Params, x: torch.Tensor, *, cfg=None) -> torch.Tensor:
     """:func:`fused_stack_apply` with the plain version on any device: the
     reference the kernel is held against on the card."""
-    return _apply(fused_stack_plain, params, x, cfg)
+    return apply_stack(fused_stack_plain, prepare_weights_cached, params, x, cfg)

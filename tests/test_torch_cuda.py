@@ -1,12 +1,15 @@
-"""The port on a CUDA card: K1 and K3 against their plain versions, the
-enhance path, the frame stream, and the generator's device stage. Every test
+"""The port on a CUDA card: K1, K2, K3 and K4 against their plain versions,
+the forward's route by config and dtype, the enhance path, the frame stream,
+and the generator's device stage. Every test
 here needs a card (marker ``gpu``) and skips without one. It imports neither jax nor the JAX package, so it also runs on a
 machine that has only the port's dependencies:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 
-Tolerances: K1 within 6e-3 max and 6e-4 mean abs of the plain version's fp32
-result (the kernel's approximate transcendentals and bf16 intermediates);
+Tolerances: K1 and K2 within 6e-3 max and 6e-4 mean abs of their plain
+versions' fp32 results (the kernels' approximate transcendentals and bf16
+intermediates); K4's accumulator within 1e-3 of its largest value and its
+output within 1e-6 (mma sums in another order than the plain product);
 the enhanced frame within 50 dB of the same path with the plain stack;
 K3 and the k-means palettes equal to their plain versions byte for byte.
 """
@@ -24,6 +27,8 @@ from fs_uae_image_enhancer_project_tpu_torch.export.streaming import FrameStream
 from fs_uae_image_enhancer_project_tpu_torch.models import get_model
 from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
 from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_packed as k2
+from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import lane_packing as k4
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ONNX = os.path.join(REPO, "artifacts", "model_pix_shuffle", "pix_shuffle.onnx")
@@ -76,7 +81,95 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                        fs.prepare_weights(_params("cpu"), "cpu"))
     heavy = get_model("pix_shuffle", "heavyweight")
     with pytest.raises(ValueError):
-        heavy.apply(heavy.init(device=cuda), torch.zeros(1, 16, 16, 3, device=cuda))
+        fs.fused_stack_apply(heavy.init(device=cuda), torch.zeros(1, 16, 16, 3, device=cuda),
+                             cfg=heavy.config)
+    with pytest.raises(ValueError):  # the lightweight bf16 route: K1 takes even H and W
+        get_model("pix_shuffle").apply(_params(cuda), torch.zeros(1, 15, 16, 3, device=cuda,
+                                                                  dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("h2,w2", [(288, 376), (288, 368), (10, 14), (17, 33), (1, 1)])
+def test_k2_matches_plain(cuda, h2, w2):
+    sw = k2.prepare_weights(_params(cuda), cuda)
+    u = torch.rand(h2, w2, 12, generator=torch.Generator().manual_seed(2))
+    u = u.to(torch.bfloat16).to(cuda)
+    before = k2.fused_stack_packed.launches
+    y = k2.fused_stack_packed(u, sw).float()
+    torch.cuda.synchronize()
+    assert k2.fused_stack_packed.launches == before + 1
+    err = (y - k2.fused_stack_packed_plain(u, sw, out_fp32=True)).abs()
+    assert float(err.max()) <= 6e-3 and float(err.mean()) <= 6e-4
+
+
+def test_k2_is_deterministic_and_takes_a_batch(cuda):
+    sw = k2.prepare_weights(_params(cuda), cuda)
+    u = torch.rand(2, 40, 56, 12, generator=torch.Generator().manual_seed(3))
+    u = u.to(torch.bfloat16).to(cuda)
+    keep = u.clone()
+    a, b = k2.fused_stack_packed(u, sw), k2.fused_stack_packed(u, sw)
+    assert torch.equal(a, b) and torch.equal(u, keep)
+    assert torch.equal(a[1], k2.fused_stack_packed(u[1].contiguous(), sw))
+    with pytest.raises(ValueError):
+        k2.fused_stack_packed(u.float(), sw)
+
+
+@pytest.mark.parametrize("m,k,n", [(9216, 648, 72), (3072, 1296, 216), (100, 50, 9)])
+def test_k4_accumulator_matches_plain(cuda, m, k, n):
+    rng = np.random.default_rng(m)
+    a = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(np.float32)).to(torch.bfloat16)
+    w = w.to(cuda)
+    before = k4.lane_packing_mm.launches
+    o, acc = k4.lane_packing_mm(a, w, 3)
+    torch.cuda.synchronize()
+    assert k4.lane_packing_mm.launches == before + 1
+    po, pacc = k4.lane_packing_mm_plain(a, w, 3)
+    assert float((acc - pacc).abs().max()) <= 1e-3 * float(pacc.abs().max())
+    assert float((o - po).abs().max()) <= 1e-6
+    o2, acc2 = k4.lane_packing_mm(a, w, 3)
+    assert torch.equal(o, o2) and torch.equal(acc, acc2)
+
+
+def test_heavyweight_runs_on_the_card_through_the_eager_forward(cuda):
+    heavy = get_model("pix_shuffle", "heavyweight")
+    params = heavy.init(torch.Generator().manual_seed(0), device="cpu")
+    x = torch.rand(2, 32, 48, 3, generator=torch.Generator().manual_seed(4))
+    want = heavy.apply(params, x)
+    on_card = {k: {kk: vv.to(cuda) for kk, vv in v.items()} for k, v in params.items()}
+    before = fs.fused_stack.launches
+    got = heavy.apply(on_card, x.to(cuda)).cpu()
+    assert fs.fused_stack.launches == before
+    assert float((got - want).abs().max()) <= 1e-4  # fp32 on both, TF32 off
+
+
+def test_a_batch_of_two_through_k1_equals_two_frames(cuda):
+    m = get_model("pix_shuffle")
+    params = _params(cuda)
+    x = torch.rand(2, 64, 96, 3, generator=torch.Generator().manual_seed(5)).to(cuda)
+    x = x.to(torch.bfloat16)
+    before = fs.fused_stack.launches
+    both = m.apply(params, x)
+    assert fs.fused_stack.launches == before + 1
+    assert torch.equal(both[0:1], m.apply(params, x[0:1]))
+    assert torch.equal(both[1:2], m.apply(params, x[1:2]))
+
+
+def test_fp32_enhance_does_not_run_k1(cuda):
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_import import import_pix_shuffle
+    from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
+
+    frames = np.random.default_rng(2).integers(0, 256, (2, 576, 752, 4), dtype=np.uint8)
+    fn = enhance_from_onnx(ONNX, device=cuda, compute_dtype=torch.float32)
+    before = fs.fused_stack.launches
+    out = fn(frames).cpu().numpy()
+    assert fs.fused_stack.launches == before
+    imp = import_pix_shuffle(ONNX)
+    cpu = make_enhance_fn(get_model("pix_shuffle").apply, params_from_jax(imp.params, device="cpu"),
+                          crop_left=imp.crop_left, compute_dtype=torch.float32,
+                          srgb_to_linear_exponent=imp.srgb_to_linear_exponent,
+                          linear_to_srgb_exponent=imp.linear_to_srgb_exponent,
+                          device="cpu")(frames).numpy()
+    assert np.abs(out.astype(int) - cpu.astype(int)).max() <= 1  # fp32 on both: truncation LSB
 
 
 def test_enhance_runs_the_kernel_and_matches_the_plain_stack(cuda):

@@ -162,12 +162,19 @@ def _imports(path):
             yield node.module
 
 
+# the kernel benches' slice: its modules are among those checked
+NEW_MODULES = ("utils.profiler", "utils.threefry", "ops.cuda.fused_stack_packed",
+               "ops.cuda.lane_packing", "scripts.bench_fused_stack", "scripts.bench_lane_packing")
+
+
 def test_port_chip_smoke_and_card_tests_import_no_jax():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tests", "test_torch_cuda.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    for new in NEW_MODULES:
+        assert os.path.join(PORT, *new.split(".")) + ".py" in files, new
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -181,6 +188,8 @@ def test_port_chip_smoke_and_card_tests_import_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fs_uae_image_enhancer_project_tpu')]\n"
         "assert not bad, bad\n"
+        f"need = {NEW_MODULES!r}\n"
+        "assert all(p.__name__ + '.' + n in sys.modules for n in need)\n"
         "print('ok', len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

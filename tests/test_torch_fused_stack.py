@@ -108,7 +108,7 @@ def test_rejects_other_configs_and_shapes():
     heavy = get_model("pix_shuffle", "heavyweight").config
     with pytest.raises(ValueError):
         fs.fused_stack_apply(PARAMS, torch.zeros(1, 16, 16, 3), cfg=heavy)
-    for shape in [(2, 16, 16, 3), (1, 15, 16, 3), (1, 16, 16, 4), (16, 16, 3)]:
+    for shape in [(0, 16, 16, 3), (1, 15, 16, 3), (1, 16, 16, 4), (16, 16, 3)]:
         with pytest.raises(ValueError):
             fs.fused_stack_apply(PARAMS, torch.zeros(shape))
 
@@ -116,12 +116,12 @@ def test_rejects_other_configs_and_shapes():
 def test_wrapper_checks_its_input():
     sw = fs.prepare_weights(PARAMS, "cpu")
     with pytest.raises(ValueError):
-        fs._check(torch.zeros(8, 8, 12), sw)  # fp32
+        fs.check_input(torch.zeros(8, 8, 12), sw)  # fp32
     with pytest.raises(ValueError):
-        fs._check(torch.zeros(8, 8, 11, dtype=torch.bfloat16), sw)
+        fs.check_input(torch.zeros(8, 8, 11, dtype=torch.bfloat16), sw)
     with pytest.raises(ValueError):
-        fs._check(torch.zeros(8, 16, 12, dtype=torch.bfloat16)[:, ::2], sw)
-    fs._check(torch.zeros(8, 8, 12, dtype=torch.bfloat16), sw)
+        fs.check_input(torch.zeros(8, 16, 12, dtype=torch.bfloat16)[:, ::2], sw)
+    fs.check_input(torch.zeros(8, 8, 12, dtype=torch.bfloat16), sw)
 
 
 def test_cpu_tensor_takes_the_plain_version_without_launching():

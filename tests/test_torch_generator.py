@@ -65,7 +65,8 @@ def _kw(tmp_path, out, **kw):
 
 
 def _cfg(tmp_path, out, **kw):
-    return GeneratorConfig(**_kw(tmp_path, out, **{"device": "cpu", **kw}))
+    return GeneratorConfig(**_kw(tmp_path, out, **{"device": "cpu", "quantize_backend": "device",
+                                                   **kw}))
 
 
 def _tree(root):
@@ -179,7 +180,8 @@ def test_cli_with_device_cpu(source_tree):
         "--train_images", str(source_tree / "src"), "--dest_dir", str(dest),
         "--crop_size", "48", "32", "--palette", "8", "16",
         "--dither", "none", "checkerboard", "bayer4x4", "floyd-steinberg",
-        "--palette_algorithm", "median_cut", "--device_batch", "2", "--device", "cpu",
+        "--palette_algorithm", "median_cut", "--quantize_backend", "device",
+        "--device_batch", "2", "--device", "cpu",
         "--workers", "1", "--cache_dir", str(source_tree / "cache_cli"), "--verbose", "0",
     ])
     assert rc == 0

@@ -19,6 +19,7 @@ from fs_uae_image_enhancer_project_tpu.models import pix_shuffle as jps
 from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax, params_to_numpy
 from fs_uae_image_enhancer_project_tpu_torch.models import count_params, get_model
 from fs_uae_image_enhancer_project_tpu_torch.models import pix_shuffle as tps
+from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
 
 
 def _jax_params(variant, seed=0):
@@ -94,11 +95,18 @@ def test_registry_errors():
 
 
 def test_cuda_forward_rejects_heavyweight_config(monkeypatch):
-    """On a CUDA tensor the forward goes through the fused-stack kernel, which
-    takes the lightweight config only: other configs raise, never fall back."""
+    """On a CUDA tensor a heavyweight config never reaches the fused-stack
+    kernel, which takes the lightweight config only and rejects any other:
+    the forward routes it to the eager forward, the reference's own route."""
     m = get_model("pix_shuffle", "heavyweight")
     p = m.init(device="cpu")
-    x = torch.zeros(1, 8, 8, 3)
-    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    x = torch.rand(1, 8, 8, 3, generator=torch.Generator().manual_seed(0))
+    want = m.apply(p, x)
     with pytest.raises(ValueError, match="lightweight"):
-        m.apply(p, x)
+        fs.fused_stack_apply(p, x, cfg=m.config)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(fs, "fused_stack_apply", None)  # the K1 route is not taken
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(m.apply(p, x.to(dtype)), tps._forward(p, x.to(dtype), m.config,
+                                                                 lambda _t, v: v))
+    assert torch.equal(m.apply(p, x), want)

@@ -138,7 +138,7 @@ def test_kmeans_torch_default_draw_is_deterministic():
     a = tq.generate_palettes_kmeans_torch_batch(stacks, 16, device="cpu")
     b = tq.generate_palettes_kmeans_torch_batch(stacks, 16, device="cpu")
     assert torch.equal(a, b)
-    first = int(torch.randint(0, stacks.shape[1], (), generator=torch.Generator().manual_seed(42)))
+    first = _jax_first_index(42, stacks.shape[1])
     c = tq.generate_palettes_kmeans_torch_batch(stacks, 16, first_index=first, device="cpu")
     assert torch.equal(a, c)
     with pytest.raises(ValueError):
