@@ -5,10 +5,14 @@
 Phases, each printing one JSON line with its wall time:
 
 1. device     the card (nvidia-smi name and power limit, torch's name)
-2. build      nvcc build of the port's kernels (time, ptxas registers/spills)
+2. build      nvcc build of the port's kernels (time, ptxas registers/spills);
+              K1's and K2's registers, local memory (spills) and shared
+              memory from cudaFuncGetAttributes, and their plan (tile, ring)
+              held to ops/cuda/fused_stack_plan.py
 3. k1_parity  the fused-stack kernel (K1) against its plain PyTorch version,
-              shipped weights, seeded inputs, half-res 288x376 and 288x368;
-              two frames in one launch against two launches
+              shipped weights, seeded inputs, half-res 288x376, 288x368 and
+              290x375 (neither side a multiple of the 16x14 tile); three
+              frames in one launch against three launches
 4. k2_parity  the pair-packed fused-stack kernel (K2) the same way, and
               against K1
 5. k4_parity  the lane-packing kernel (K4) against its plain version at the
@@ -28,10 +32,12 @@ Phases, each printing one JSON line with its wall time:
               second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-11. timing    CUDA-event medians of K1, K2, their plain versions, cuDNN, the
-              enhance; of K4, its plain version and the torch.matmul chain at
-              the 12 cases; of K3, its plain version, cdist + topk, the
-              batched k-means
+11. timing    K1's and K2's device time a call (median, min and max of 3
+              repeats of 50 back-to-back calls) and CUDA-event medians of
+              K1, K2, their plain versions, cuDNN, the enhance (and its
+              device time a frame); of K4, its plain version and the
+              torch.matmul chain at the 12 cases; of K3, its plain version,
+              cdist + topk, the batched k-means
 12. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
@@ -122,30 +128,11 @@ def median_ms(fn, n: int = 50, warmup: int = 10) -> float:
 
 
 def device_ms(fn, n: int = 50, reps: int = 3, preroll_ms: float = 30.0) -> dict:
-    """Device time per call of ``fn``, with ``n`` calls back to back. A sleep
-    kernel holds the stream while the host enqueues the calls, so the events
-    time the device and not the Python that launches it (a short kernel
-    takes less time than its wrapper). ``host_behind`` says that the host
-    took longer to enqueue than the sleep lasted, so gaps may be counted."""
-    import torch
+    """The device's time per call of ``fn``: ``utils.profiler.device_times``
+    (median, min and max over ``reps`` runs of ``n`` back-to-back calls)."""
+    from fs_uae_image_enhancer_project_tpu_torch.utils.profiler import device_times
 
-    fn()
-    torch.cuda.synchronize()
-    cycles = int(preroll_ms * 2e6)  # at most 2 GHz: the sleep lasts at least preroll_ms
-    per, behind = [], False
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        h0 = time.perf_counter()
-        s.record()
-        for _ in range(n):
-            fn()
-        e.record()
-        behind |= (time.perf_counter() - h0) * 1e3 > preroll_ms
-        e.synchronize()
-        per.append(s.elapsed_time(e) / n)
-    return {"ms": statistics.median(per), "host_behind": behind}
+    return device_times(fn, n=n, reps=reps, preroll_ms=preroll_ms)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -195,23 +182,27 @@ def library_stack(u, sw):
 
 def stack_parity(dev, stack, plain, sw, other=None) -> list:
     """A fused-stack kernel (``stack``, K1 or K2) against its plain version on
-    ``dev``: seeded linear-light inputs at half-res 288x376 and 288x368, the
-    max and mean abs error against the plain version's fp32 result, the
-    largest error on the 16-pixel tile seams, and, with ``other`` (another
-    kernel and its weights), the largest difference from it. Then two frames
-    in one launch against the two frames one launch each."""
+    ``dev``: seeded linear-light inputs at half-res 288x376, 288x368 and
+    290x375, the max and mean abs error against the plain version's fp32
+    result, the largest error on the seams of the kernels' tile, and,
+    with ``other`` (another kernel and its weights), the largest difference
+    from it. Then three frames in one launch against the three frames one
+    launch each."""
     import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda.fused_stack_plan import TILE
 
     gen = torch.Generator().manual_seed(0)
     recs = []
-    for h2, w2 in ((288, 376), (288, 368)):
+    th, tw = TILE
+    for h2, w2 in ((288, 376), (288, 368), (290, 375)):
         u = (torch.rand(h2, w2, 12, generator=gen) ** 2.2).to(torch.bfloat16).to(dev)
         y = stack(u, sw).float()
         ref = plain(u, sw, out_fp32=True)
         err = (y - ref).abs()
         row, col = err.amax(dim=(1, 2)), err.amax(dim=(0, 2))
-        seam_r = torch.tensor([r for r in range(h2) if r % 16 in (0, 15)], device=dev)
-        seam_c = torch.tensor([c for c in range(w2) if c % 16 in (0, 15)], device=dev)
+        seam_r = torch.tensor([r for r in range(h2) if r % th in (0, th - 1)], device=dev)
+        seam_c = torch.tensor([c for c in range(w2) if c % tw in (0, tw - 1)], device=dev)
         rec = dict(shape=[h2, w2], max_abs=err.max().item(), mean_abs=err.mean().item(),
                    seam_row_max=row[seam_r].max().item(), seam_col_max=col[seam_c].max().item(),
                    right_edge_max=col[-2:].max().item(),
@@ -220,9 +211,9 @@ def stack_parity(dev, stack, plain, sw, other=None) -> list:
         if other is not None:
             rec["max_abs_vs_other"] = (y - other[0](u, other[1]).float()).abs().max().item()
         recs.append(rec)
-    pair = (torch.rand(2, 40, 56, 12, generator=gen) ** 2.2).to(torch.bfloat16).to(dev)
-    one_by_one = torch.stack([stack(pair[0].contiguous(), sw), stack(pair[1].contiguous(), sw)])
-    recs.append(dict(shape=[2, 40, 56], batch_equals_frames=bool(torch.equal(stack(pair, sw),
+    trio = (torch.rand(3, 40, 58, 12, generator=gen) ** 2.2).to(torch.bfloat16).to(dev)
+    one_by_one = torch.stack([stack(f.contiguous(), sw) for f in trio])
+    recs.append(dict(shape=[3, 40, 58], batch_equals_frames=bool(torch.equal(stack(trio, sw),
                                                                             one_by_one))))
     return recs
 
@@ -233,7 +224,7 @@ def check_stack(name: str, recs: list) -> None:
         check(rec["max_abs"] <= K1_MAX_ABS, f"{name} max abs {rec['max_abs']} > {K1_MAX_ABS}")
         check(rec["mean_abs"] <= K1_MEAN_ABS,
               f"{name} mean abs {rec['mean_abs']} > {K1_MEAN_ABS}")
-    check(recs[-1]["batch_equals_frames"], f"{name}: two frames in one launch differ")
+    check(recs[-1]["batch_equals_frames"], f"{name}: three frames in one launch differ")
 
 
 def k4_inputs(rng, m: int, k: int, n: int, dev):
@@ -624,6 +615,7 @@ def main() -> int:
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import build
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_packed as k2
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_plan as plan
     from fs_uae_image_enhancer_project_tpu_torch.ops.pixel_shuffle import pixel_unshuffle
     from fs_uae_image_enhancer_project_tpu_torch.runtime.sidecar import (
         SidecarClient, SidecarServer)
@@ -650,10 +642,18 @@ def main() -> int:
     lib = build.load_library()
     ptxas = [line.strip() for line in build.build_info["ptxas"].splitlines()
              if any(k in line for k in ("Compiling entry", "registers", "spill", "smem"))]
+    info = {"K1": fs.kernel_info("fse_fused_stack", dev),
+            "K2": fs.kernel_info("fse_fused_stack_packed", dev)}
     emit("build", t0, build_seconds=round(build.build_info["seconds"], 3),
          built=build.build_info["built"], smem_bytes=lib.fse_fused_stack_smem_bytes(),
-         k2_smem_bytes=lib.fse_fused_stack_packed_smem_bytes(),
+         k2_smem_bytes=lib.fse_fused_stack_packed_smem_bytes(), kernel_info=info,
          ptxas=ptxas)
+    for pk, name in ((1, "K1"), (2, "K2")):
+        want = dict(dynamic_smem=plan.smem_bytes(pk), threads=32 * plan.NWARPS,
+                    tile_rows=plan.TILE[0], tile_cols=plan.TILE[1],
+                    ring3_bytes=plan.smem(pk)["ring3"][1])
+        got = {k: info[name][k] for k in want}
+        check(got == want, f"{name}'s compiled plan {got} is not fused_stack_plan's {want}")
 
     # 3. k1_parity: shipped weights, seeded linear-light inputs
     _phase = "k1_parity"
@@ -789,14 +789,19 @@ def main() -> int:
     x = x ** imp.srgb_to_linear_exponent
     u = pixel_unshuffle(x[None], 2)[0].to(torch.bfloat16).contiguous()
     h2, w2 = u.shape[:2]
-    k1_ms = median_ms(lambda: fs.fused_stack(u, sw))
+    k1_dev = device_ms(lambda: fs.fused_stack(u, sw))
+    k2_dev = device_ms(lambda: k2.fused_stack_packed(u, sw2))
+    k1_call_ms = median_ms(lambda: fs.fused_stack(u, sw))
     plain_ms = median_ms(lambda: fs.fused_stack_plain(u, sw))
     library_ms = median_ms(lambda: library_stack(u, sw))
-    k2_ms = median_ms(lambda: k2.fused_stack_packed(u, sw2))
+    k2_call_ms = median_ms(lambda: k2.fused_stack_packed(u, sw2))
     k2_plain_ms = median_ms(lambda: k2.fused_stack_packed_plain(u, sw2), n=10)
-    k1_again_ms = median_ms(lambda: fs.fused_stack(u, sw))
+    k1_again = device_ms(lambda: fs.fused_stack(u, sw))
+    k1_ms, k2_ms = k1_dev["ms"], k2_dev["ms"]
     frame_dev = torch.from_numpy(frames[:1]).to(dev)
     enhance_ms = median_ms(lambda: enhance(frame_dev))
+    # the device's time of a frame, the host's launches hidden behind a sleep
+    enhance_dev = device_ms(lambda: enhance(frame_dev), n=20)
     flops = 2.0 * fs.MACS_PER_PIXEL * h2 * w2
     nbytes = (2 * u.numel() * u.element_size()
               + sum(w.numel() * w.element_size() for w in sw.frags)
@@ -812,9 +817,14 @@ def main() -> int:
     check(all(r["equal_to_plain"] for r in k3_rows),
           "K3 differs from its plain version on the generator's crops and palettes")
     emit("timing", t0, shape=[h2, w2, 12], gflop=flops / 1e9, mbytes=nbytes / 1e6,
-         k1_ms=k1_ms, k1_again_ms=k1_again_ms, bound_ms=bound_ms, share_of_bound=bound_ms / k1_ms,
-         plain_ms=plain_ms, library_ms=library_ms, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+         k1_ms=k1_ms, k1_device=k1_dev, k1_again_device=k1_again, k1_call_ms=k1_call_ms,
+         bound_ms=bound_ms, share_of_bound=bound_ms / k1_ms,
+         plain_ms=plain_ms, library_ms=library_ms, k2_ms=k2_ms, k2_device=k2_dev,
+         k2_call_ms=k2_call_ms, k2_plain_ms=k2_plain_ms,
+         waves=plan.waves(h2, w2, plan.TILE), weight_bytes_per_cta={"K1": plan.weight_bytes_per_cta(1),
+                                                         "K2": plan.weight_bytes_per_cta(2)},
          k2_share_of_bound=bound_ms / k2_ms, k4=k4_rows, enhance_ms_per_frame=enhance_ms,
+         enhance_device_ms=enhance_dev,
          enhance_fps=1e3 / enhance_ms, k3_shape=list(dg["arrs"].shape), k3=k3_rows,
          kmeans_ms=kmeans_ms, datagen_styled_crops_per_s=dg["styled_crops_per_s"],
          nvidia_smi=smi)

@@ -7,6 +7,10 @@ library goes to ``build/torch_kernels/<content-hash>/libfse_kernels.so`` under
 the repo root, built at first use. The build writes to temporary names and
 ``os.replace``-s the library into place, so a build that is cut off leaves
 neither a half-written library nor a lock. Any failure raises.
+
+``load_library(csrc=..., defines=...)`` builds another source tree or the
+same one with preprocessor settings (a tile sweep, or a parent commit's
+kernels timed beside these), each into its own hashed directory.
 """
 from __future__ import annotations
 
@@ -32,19 +36,25 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 BUILD_TIMEOUT_S = 180
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-# how the library was obtained in this process: build seconds and ptxas report
+_libs: dict = {}
+# how the default library was obtained in this process: build seconds and
+# ptxas report (``infos`` has the same for every library loaded)
 build_info: dict = {}
+infos: dict = {}
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
+def _sources(csrc: str = CSRC):
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")) + glob.glob(os.path.join(csrc, "*.cuh")))
 
 
-def library_path() -> str:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for path in _sources():
+def _flags(defines) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def library_path(csrc: str = CSRC, defines=()) -> str:
+    """Where the library for the sources in ``csrc`` and these flags lives."""
+    h = hashlib.sha256(" ".join(_flags(defines) + LINK_FLAGS).encode())
+    for path in _sources(csrc):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -85,20 +95,20 @@ def _run(cmds, deadline: float) -> str:
     return "".join(logs)
 
 
-def build(out: str) -> None:
-    """Compile every ``csrc/*.cu`` into ``out``: one nvcc per source, in
-    parallel, then one link."""
+def build(out: str, csrc: str = CSRC, defines=()) -> dict:
+    """Compile every ``.cu`` of ``csrc`` into ``out``: one nvcc per source, in
+    parallel, then one link. Returns ``dict(seconds=..., built=True)``."""
     nvcc = _nvcc()
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tag = f"tmp{os.getpid()}"
-    sources = [s for s in _sources() if s.endswith(".cu")]
+    sources = [s for s in _sources(csrc) if s.endswith(".cu")]
     objs = [f"{out}.{os.path.basename(s)}.{tag}.o" for s in sources]
     tmp = f"{out}.{tag}"
     t0 = time.perf_counter()
     deadline = t0 + BUILD_TIMEOUT_S
     try:
-        stderr = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(sources, objs)],
-                      deadline)
+        stderr = _run([[nvcc, *_flags(defines), "-c", "-o", o, s]
+                       for s, o in zip(sources, objs)], deadline)
         _run([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]], deadline)
     except BaseException:
         if os.path.exists(tmp):
@@ -114,7 +124,7 @@ def build(out: str) -> None:
         f.write(stderr)
     os.replace(log_tmp, out + ".ptxas.log")
     os.replace(tmp, out)
-    build_info.update(seconds=seconds, built=True)
+    return dict(seconds=seconds, built=True)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -124,26 +134,34 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, name).restype = i
         getattr(lib, name + "_smem_bytes").argtypes = []
         getattr(lib, name + "_smem_bytes").restype = i
+        if hasattr(lib, name + "_info"):  # not in a library built before the info entry
+            getattr(lib, name + "_info").argtypes = [ctypes.POINTER(i), i]
+            getattr(lib, name + "_info").restype = i
+        if hasattr(lib, name + "_profile"):  # a build with -DFSE_PROFILE
+            getattr(lib, name + "_profile").argtypes = [p]
+            getattr(lib, name + "_profile").restype = i
     lib.fse_lane_packing.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.fse_lane_packing.restype = i
     lib.fse_palette_dither.argtypes = [p] * 4 + [i] * 6 + [ctypes.POINTER(i), i, p]
     lib.fse_palette_dither.restype = i
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' library, built on first use in this checkout."""
-    global _lib
+def load_library(csrc: Optional[str] = None, defines=()) -> ctypes.CDLL:
+    """The kernels' library, built on first use in this checkout: from this
+    package's ``csrc`` by default or from the ``csrc`` given, with ``-D``
+    for each of ``defines`` (strings such as ``"FSE_TILE_W=16"``)."""
+    key = (os.path.abspath(csrc or CSRC), tuple(defines))
     with _lock:
-        if _lib is None:
-            path = library_path()
-            if not os.path.exists(path):
-                build(path)
-            else:
-                build_info.update(seconds=0.0, built=False)
+        if key not in _libs:
+            path = library_path(key[0], defines)
+            info = (build(path, key[0], defines) if not os.path.exists(path)
+                    else dict(seconds=0.0, built=False))
             lib = ctypes.CDLL(path)
             _declare(lib)
             log = path + ".ptxas.log"
-            build_info["ptxas"] = open(log).read() if os.path.exists(log) else ""
-            build_info["path"] = path
-            _lib = lib
-        return _lib
+            info.update(ptxas=open(log).read() if os.path.exists(log) else "", path=path)
+            infos[key] = info
+            if csrc is None and not defines:
+                build_info.update(info)
+            _libs[key] = lib
+        return _libs[key]

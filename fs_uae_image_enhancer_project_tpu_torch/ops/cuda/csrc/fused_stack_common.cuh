@@ -10,40 +10,70 @@
 //
 // The two forms share everything but the GEMM's shape (template parameter
 // PK, pixels per matmul row):
-// - one CTA owns a 16x16 output tile of one frame (blockIdx.z), loads its
-//   30x30 input region (7-pixel halo, SAME-pad zeros) and runs all 7 layers
-//   in shared memory, each over a region 2 rows and 2 columns smaller than
-//   the one before; out-of-image pixels are re-masked to zero after every
-//   layer, which is what per-layer SAME zero padding means at the frame's
-//   edges;
-// - l1 stays alive until l6 reads it; the other layers ping-pong between two
-//   buffers; one CTA of 16 warps per SM;
+// - one CTA of 12 warps owns a TH x TW output tile of one frame
+//   (blockIdx.z), loads its input region (7-pixel halo, SAME-pad zeros) and
+//   runs all 7 layers in shared memory, each over a region 2 rows and 2
+//   columns smaller than the one before; out-of-image pixels are re-masked
+//   to zero after every layer, which is what per-layer SAME zero padding
+//   means at the frame's edges;
 // - every conv is an implicit GEMM on the tensor cores (mma.sync m16n8k16,
 //   bf16 in, fp32 accumulate). PK = 1: M = output pixels, N = cout padded to
 //   8, K = 9 taps x cin. PK = 2: M = output pairs (columns 2t, 2t+1), N =
 //   2 cout, K = 3 rows x 4 columns x cin: the pair's windows union to columns
 //   2t-1..2t+2, and a quarter of the K x N weights are structural zeros.
 //   In shared memory the left neighbour of a pair is just the previous
-//   pixel's address, so no [A|O] buffer is materialised: only the window's
-//   width (3 -> 4 columns) and the weights change;
-// - a warp job is 16 matmul rows by at most NT_JOB mma tiles of N; layers
-//   with a wider N (K2's 144 columns) split N over two jobs.
+//   pixel's address, so no [A|O] buffer is materialised.
 //
+// What bounds it, and what this design does about it. The first design gave
+// each warp jobs of one m-tile (16 matmul rows) and read the B fragments of
+// every job from global memory (__ldg): 9.4 MB (K1) and 12.0 MB (K2) of
+// weight loads a CTA for 0.31 and 0.77 MB of weights, and 5-9 mma per
+// k-step against 4 A loads, 5-9 B loads and the tap arithmetic. Now:
+// - each layer's weights come from global memory once per CTA: cp.async
+//   stages them into a ring in shared memory, whole where they fit, else in
+//   chunks of k-steps through two buffers (the next chunk loads while the
+//   CTA computes this one); the first chunk of the next layer loads during
+//   this layer's epilogue. All warps read B from shared memory (one uint2 a
+//   lane, 256 contiguous bytes a warp: no bank conflicts);
+// - the whole CTA walks K in step with the ring, so a warp holds all its
+//   work of the layer in registers: the units (m-tile, group of at most 9
+//   n-tiles) go round robin over the 12 warps (at most 108 fp32 accumulators
+//   a thread: 3 units of 9 n-tiles, or 4 of 5), and each B fragment read
+//   from shared memory serves all
+//   of the warp's m-tiles; the A offsets of 32 k-steps are worked out at
+//   once, a k-step a lane, and each k-step takes its pair by shuffle (the
+//   tap arithmetic in the loop cost more issue slots than its mma); the
+//   k-step loop is compiled for a warp's exact unit count, with no branch
+//   inside; K1 loads A with ldmatrix;
+// - shared memory: l1 (the skip into layer 6) is compacted after layer 2 to
+//   the window layer 6 reads, which frees the ring of layers 3-7 (layers
+//   1-2 stage into l3/l5's buffer, free until layer 3);
+// - the tile, 16 x 14, gives 486 CTAs at 288 x 376 (3.7 waves over 132
+//   SMs) against the first design's 16 x 16 (432, 3.3 waves): the same four
+//   waves of less work each. Three waves would need 288-pixel tiles, whose
+//   layer 3 holds 117 accumulators a thread, more than the registers allow.
+// What bounds it now (scripts/profile_fused_stack.py, H100): the K loops
+// take about 62% of a tile, at about 8-18 cycles per mma.sync a
+// sub-partition, and the epilogues (the activation chains, MUFU-heavy)
+// about 35%, with all warps in the same phase, so neither overlaps the
+// other. Next: wgmma, and epilogues that overlap the next unit's mma.
 // Layouts. Input and output: (N, H2, W2, 12) bf16, channels last,
 // contiguous. Shared memory: each region is [pixel][channel] bf16 with a
 // per-layer channel stride chosen so that the 8 matmul rows of an mma
 // fragment hit distinct banks (rows 1 pixel apart for PK = 1, 2 apart for
 // PK = 2). Weights: per layer, the (K, N) bf16 matrix pre-arranged by the
-// wrapper into mma.sync B-fragment order, [kstep][ntile][lane][4]. K runs
-// over chunks of 8 input channels, tap-major: k = (tap * cin_pad + c), with
-// tap = dy * (PK + 2) + dx; for layer 6 the l1 chunks come first, then the
-// l5 chunks. The chunk count is padded to even with zero weights.
+// wrapper into mma.sync B-fragment order, [kstep][ntile][lane][4], so any
+// range of k-steps is one contiguous block. K runs over chunks of 8 input
+// channels, tap-major: k = (tap * cin_pad + c), with tap = dy * (PK + 2) +
+// dx; for layer 6 the l1 chunks come first, then the l5 chunks. The chunk
+// count is padded to even with zero weights. ops/cuda/fused_stack_plan.py
+// mirrors the plan (tile, warps' units, buffers, ring chunks) for the tests.
 //
 // Numerics: bf16 intermediates, as the Pallas kernels' scratch, and the
 // hardware's approximate transcendentals (ex2, sin, lg2 and tanh .approx,
 // fast division). The exact libm versions cost 0.3 ms of a 1.03 ms frame
-// (H100, K1); their error (tanh.approx about 2^-11 relative) is below the
-// bf16 rounding of each stored layer.
+// (H100, the first design); their error (tanh.approx about 2^-11 relative)
+// is below the bf16 rounding of each stored layer.
 
 #pragma once
 
@@ -55,14 +85,50 @@ namespace fse_stack {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TILE = 16;      // output tile is TILE x TILE half-res pixels
-constexpr int NWARPS = 16;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int NT_JOB = 9;     // most 8-column mma tiles one warp job accumulates
+// Built with -DFSE_PROFILE (scripts/profile_fused_stack.py), thread 0 of each
+// CTA of frame 0 records clock64() at the phase boundaries: 0 start, 2L and
+// 2L+1 the start and end of layer L's K loop (its epilogue follows), 17
+// before l1's compaction, 16 the end. Off by default: no cost.
+constexpr int PROFILE_CTAS = 1024, PROFILE_STAMPS = 18;
+#ifdef FSE_PROFILE
+static __device__ unsigned long long g_stamps[PROFILE_CTAS][PROFILE_STAMPS];
+#define FSE_STAMP(k)                                                               \
+  do {                                                                             \
+    const unsigned cta = blockIdx.y * gridDim.x + blockIdx.x;                      \
+    if (threadIdx.x == 0 && blockIdx.z == 0 && cta < PROFILE_CTAS)                 \
+      g_stamps[cta][k] = clock64();                                                \
+  } while (0)
+// copy the stamps to the host buffer `out` (PROFILE_CTAS x PROFILE_STAMPS)
+static int copy_stamps(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
+}
+#else
+#define FSE_STAMP(k) \
+  do {               \
+  } while (0)
+#endif
 
-// region width of layer L (0 = input, 7 = output): halo 7 - L on each side
-__host__ __device__ constexpr int region(int layer) { return TILE + 2 * (7 - layer); }
+// The output tile, rows x columns (half-res pixels); a sweep may set it at
+// build time (-DFSE_TILE_H=.. -DFSE_TILE_W=..).
+#ifndef FSE_TILE_H
+#define FSE_TILE_H 16
+#endif
+#ifndef FSE_TILE_W
+#define FSE_TILE_W 14
+#endif
+constexpr int TH = FSE_TILE_H;
+constexpr int TW = FSE_TILE_W;
+static_assert(TW % 2 == 0, "K2 pairs the columns of every region");
+constexpr int NWARPS = 12;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int NT_GROUP = 9;   // most 8-column mma tiles of N one unit holds
+constexpr int SMEM_LIMIT = 232448;
+
+// region of layer L (0 = input, 7 = output): halo 7 - L on each side
+__host__ __device__ constexpr int rows_of(int layer) { return TH + 2 * (7 - layer); }
+__host__ __device__ constexpr int cols_of(int layer) { return TW + 2 * (7 - layer); }
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int align16(int b) { return (b + 15) / 16 * 16; }
 
 // channel strides in shared memory (elements), per GEMM form: 12 input
 // channels (16 read, 12-15 zero), 36 (40 read) and 72. Consecutive matmul
@@ -77,16 +143,61 @@ constexpr int P_B1 = 0, P_B2 = 40, P_B3 = 80, P_B4 = 152, P_B5 = 224, P_B6 = 264
               P_B7 = 304, P_P2B = 320, P_P2S = 360, P_P4B = 400, P_P4S = 472,
               P_SC = 544, P_TOTAL = 552;
 
+// Shared memory, in this order: B (in, l2, l4, l6) | C (l3, l5; the ring of
+// layers 1-2 before that) | A (l1; from layer 3 on its compacted window A1C,
+// then the ring of layers 3-7) | P (parameters). The ring takes what is left.
 template <int PK> struct Smem {
-  static constexpr int bytes_of(int layer, int cs) { return region(layer) * region(layer) * cs * 2; }
-  static constexpr int A = bytes_of(1, Geo<PK>::CS36);  // l1
+  static constexpr int bytes_of(int layer, int cs) {
+    return align16(rows_of(layer) * cols_of(layer) * cs * 2);
+  }
+  static constexpr int A = bytes_of(1, Geo<PK>::CS36);    // l1
+  static constexpr int A1C = bytes_of(5, Geo<PK>::CS36);  // l1's window that layer 6 reads
   static constexpr int B = cmax(cmax(bytes_of(0, Geo<PK>::CS_IN), bytes_of(2, Geo<PK>::CS36)),
-                                cmax(bytes_of(4, Geo<PK>::CS72), bytes_of(6, Geo<PK>::CS36)));  // in, l2, l4, l6
-  static constexpr int C = cmax(bytes_of(3, Geo<PK>::CS72), bytes_of(5, Geo<PK>::CS36));  // l3, l5
-  static constexpr int P = P_TOTAL * 4;
-  static constexpr int TOTAL = A + B + C + P;
-  static_assert(TOTAL <= 232448, "shared memory over the 227 KB a block may take");
-  static_assert(A % 16 == 0 && B % 16 == 0 && C % 16 == 0, "16-byte aligned regions");
+                                cmax(bytes_of(4, Geo<PK>::CS72), bytes_of(6, Geo<PK>::CS36)));
+  static constexpr int C = cmax(bytes_of(3, Geo<PK>::CS72), bytes_of(5, Geo<PK>::CS36));
+  static constexpr int P = align16(P_TOTAL * 4);
+  static constexpr int OFF_B = 0, OFF_C = B, OFF_A = B + C;
+  static constexpr int RING12 = C;  // the ring of layers 1-2 is C
+  static constexpr int OFF_RING3 = OFF_A + A1C;
+  static constexpr int RING3 = (SMEM_LIMIT - P - OFF_RING3) / 256 * 256;
+  static constexpr int OFF_P = OFF_RING3 + RING3;
+  static constexpr int TOTAL = OFF_P + P;
+  static_assert(TOTAL <= SMEM_LIMIT, "shared memory over the 227 KB a block may take");
+  static_assert(A1C + RING3 >= A, "l1 fits where its window and the later ring go");
+};
+
+template <int N> struct Int { static constexpr int value = N; };
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// The weights of one layer through a ring of `BYTES` bytes: whole if they
+// fit, else chunks of KC k-steps alternating between the ring's two halves.
+template <int NT, int KS, int BYTES> struct Ring {
+  static constexpr int SLICE = NT * 32;  // uint2 per k-step
+  static constexpr bool WHOLE = KS * SLICE * 8 <= BYTES;
+  static constexpr int KC = WHOLE ? KS : (BYTES / 2) / (SLICE * 8);
+  static constexpr int NC = (KS + KC - 1) / KC;
+  static_assert(KC >= 1, "a k-step's slice fits half the ring");
+
+  // Start the copy of chunk c into its half (all threads; one cp.async group).
+  static __device__ __forceinline__ void load(int c, uint2* ring, const uint2* __restrict__ wf) {
+    const int k0 = c * KC;
+    const int n16 = ((KS - k0 < KC ? KS - k0 : KC) * SLICE) / 2;  // 16-byte pieces
+    const uint4* src = reinterpret_cast<const uint4*>(wf + k0 * SLICE);
+    uint4* dst = reinterpret_cast<uint4*>(ring + (c & 1) * KC * SLICE);
+    for (int i = threadIdx.x; i < n16; i += NTHREADS) cp_async16(dst + i, src + i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
 };
 
 __device__ __forceinline__ float tanh_f(float x) {
@@ -120,6 +231,14 @@ __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The m16n8k16 A fragment from four 8x8 matrices whose row addresses
+// (shared memory, 16-byte aligned) the lanes give.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ void st2(bf16* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }
@@ -128,92 +247,159 @@ __device__ __forceinline__ float2 ld2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// One conv layer over the output region of layer OUT, as warp jobs of 16
-// matmul rows (PK pixels each) by NT / ceil(NT / NT_JOB) mma tiles of N.
-// Source s (1 or 2 of them) is the region of layer SRC_s with channel stride
-// CS_s and CPT_s chunks of 8 channels per tap. epi(y, x, c, v0, v1) receives
-// the fp32 sums of channels c and c+1 at pixel (y, x) of the output region
-// (bias not yet added). For PK = 2, N is 2 * COUT (pixel 2t's channels, then
-// pixel 2t+1's), and epi is also called with zeros for the pad channels
-// COUT..COUT_PAD-1 that the next layer reads; for PK = 1, N is the padded
-// channel count and epi sees every channel.
-template <int PK, int OUT, int SRC0, int CS0, int CPT0, int SRC1, int CS1, int CPT1, int NT,
-          int COUT, int COUT_PAD, typename Epi>
+// One conv layer over the output region of layer OUT. Its NSRC sources (l1's
+// window and l5 for layer 6) have the geometry of layer GEO's region, channel
+// stride CS and CPT chunks of 8 channels per tap. The weights `wf` come
+// through ring R at `ring`, whose chunk 0 the caller has started; after the
+// K loop, `next()` starts the next layer's chunk 0 (the ring is free then).
+// Units (m-tile of 16 matmul rows of PK pixels, group of NT / NG n-tiles)
+// go round robin over the warps. epi(y, x, c, v0, v1) receives the fp32 sums
+// of channels c and c+1 at pixel (y, x) of the output region (bias not yet
+// added). For PK = 2, N is 2 * COUT (pixel 2t's channels, then pixel 2t+1's),
+// and epi is also called with zeros for the pad channels COUT..COUT_PAD-1
+// that the next layer reads; for PK = 1, N is the padded channel count and
+// epi sees every channel.
+template <int PK, int OUT, int GEO, int CS, int CPT, int NSRC, int NT, int COUT, int COUT_PAD,
+          typename R, typename Epi, typename Next>
 __device__ __forceinline__ void conv_layer(const bf16* __restrict__ src0,
                                            const bf16* __restrict__ src1,
-                                           const uint2* __restrict__ wf, Epi epi) {
-  constexpr int WO = region(OUT);
+                                           const uint2* __restrict__ wf, uint2* ring, Epi epi,
+                                           Next next) {
+  constexpr int WO = cols_of(OUT);
   static_assert(WO % PK == 0, "region width is a multiple of the pixels per row");
   constexpr int WQ = WO / PK;          // matmul rows per region row
-  constexpr int NROWS = WO * WQ;
+  constexpr int NROWS = rows_of(OUT) * WQ;
   constexpr int MTILES = (NROWS + 15) / 16;
-  constexpr int NSPLIT = (NT + NT_JOB - 1) / NT_JOB;
-  constexpr int NTC = NT / NSPLIT;     // mma tiles of N per job
-  static_assert(NTC * NSPLIT == NT, "N splits evenly over the jobs");
-  constexpr int NJOBS = MTILES * NSPLIT;
+  constexpr int NG = (NT + NT_GROUP - 1) / NT_GROUP;
+  constexpr int NTC = NT / NG;         // mma tiles of N per unit
+  static_assert(NTC * NG == NT && NWARPS % NG == 0, "N splits evenly, a warp keeps its group");
+  constexpr int UNITS = MTILES * NG;
+  constexpr int MT = (UNITS + NWARPS - 1) / NWARPS;  // most units a warp holds
   constexpr int TX = PK + 2;           // window columns
-  constexpr int W0 = region(SRC0);
-  constexpr int O0 = (7 - SRC0) - (7 - OUT) - 1;  // source offset of the window's top-left
-  constexpr int W1 = region(SRC1);
-  constexpr int O1 = (7 - SRC1) - (7 - OUT) - 1;
-  constexpr int NCH0 = 3 * TX * CPT0;
-  constexpr int NCH = NCH0 + 3 * TX * CPT1;
+  constexpr int WS = cols_of(GEO);
+  constexpr int OS = (7 - GEO) - (7 - OUT) - 1;  // source offset of the window's top-left
+  constexpr int NCH0 = 3 * TX * CPT;
+  constexpr int NCH = NSRC * NCH0;
   constexpr int KS = (NCH + 1) / 2;
+  static_assert(R::SLICE == NT * 32 && R::NC * R::KC >= KS && (R::NC - 1) * R::KC < KS,
+                "the ring's chunks cover the layer's k-steps");
+  static_assert(PK != 1 || CS % 8 == 0, "ldmatrix's rows are 16-byte aligned");
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
+  const int ng = warp % NG;
+  const int nunits = warp < UNITS ? (UNITS - 1 - warp) / NWARPS + 1 : 0;
 
-  for (int job = warp; job < NJOBS; job += NWARPS) {
-    const int mt = job / NSPLIT;
-    const int nt0 = (job - mt * NSPLIT) * NTC;
-    // element offsets of this thread's 2 matmul rows in each source
-    int base0[2], base1[2];
+  // Element offsets in a source of the matmul rows this thread reads for
+  // each unit. PK = 1 loads A with ldmatrix: lane L gives the address of row
+  // (L & 7) + 8 * ((L >> 3) & 1), in the k-step's first chunk for L < 16 and
+  // its second for L >= 16 (base[i][0]). PK = 2's rows are 2 pixels apart,
+  // at strides that keep them on distinct banks but not 16-byte aligned, so
+  // it reads rows g and g + 8 at channel 2t with 32-bit loads.
+  int base[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int mt = (warp + i * NWARPS) / NG;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      int r = mt * 16 + g + 8 * h;
+      int r = mt * 16 + (PK == 1 ? (lane & 7) + 8 * ((lane >> 3) & 1) : g + 8 * h);
       r = r < NROWS ? r : NROWS - 1;  // rows past the region read a valid pixel
       const int y = r / WQ;
       const int x = (r - y * WQ) * PK;
-      base0[h] = ((y + O0) * W0 + (x + O0)) * CS0 + 2 * t;
-      base1[h] = CPT1 ? ((y + O1) * W1 + (x + O1)) * CS1 + 2 * t : 0;
+      base[i][h] = ((y + OS) * WS + (x + OS)) * CS + (PK == 1 ? 0 : 2 * t);
     }
-    float acc[NTC][4];
+  }
+  float acc[MT][NTC][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NTC; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-#pragma unroll 2
-    for (int s = 0; s < KS; ++s) {
-      uint2 bfrag[NTC];
-#pragma unroll
-      for (int j = 0; j < NTC; ++j) bfrag[j] = __ldg(wf + (s * NT + nt0 + j) * 32 + lane);
-      uint32_t a[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        int q = 2 * s + half;  // chunk of 8 channels of one tap of one source
-        const bf16* src = src0;
-        bool second = false;
-        int off = 0;  // the zero-weight pad chunk reads valid data at offset 0
-        if (q < NCH0) {
-          const int tap = q / CPT0, cb = q - tap * CPT0;
-          off = ((tap / TX) * W0 + (tap % TX)) * CS0 + cb * 8;
-        } else if (q < NCH) {
-          q -= NCH0;
-          const int tap = q / (CPT1 ? CPT1 : 1), cb = q - tap * CPT1;
-          off = ((tap / TX) * W1 + (tap % TX)) * CS1 + cb * 8;
-          src = src1;
-          second = true;
-        }
-        a[2 * half + 0] = lds32(src + (second ? base1[0] : base0[0]) + off);
-        a[2 * half + 1] = lds32(src + (second ? base1[1] : base0[1]) + off);
-      }
-#pragma unroll
-      for (int j = 0; j < NTC; ++j) mma_bf16(acc[j], a, bfrag[j]);
+  // The k-steps [s0, s1) of a chunk for the warp's first NU units, with the
+  // chunk's weights at wr. NU is a constant in each of the two versions (a
+  // warp holds MT or MT - 1 units), so the loop has no branch to keep the
+  // compiler from interleaving one step's loads with another's mma.
+  // element offset from src0 of chunk q (8 channels of one tap of one source)
+  const int d1 = NSRC == 2 ? (int)(src1 - src0) : 0;
+  auto chunk_off = [&](int q) {
+    int extra = 0;
+    if (NSRC == 2 && q >= NCH0 && q < NCH) {
+      q -= NCH0;
+      extra = d1;
     }
+    if (q >= NCH0) return 0;  // the zero-weight pad chunk reads valid data at offset 0
+    const int tap = q / CPT, cb = q - tap * CPT;
+    return extra + ((tap / TX) * WS + (tap % TX)) * CS + cb * 8;
+  };
+  const uint32_t src0_s = (uint32_t)__cvta_generic_to_shared(src0);
+  auto steps = [&](auto nu, int s0, int s1, const uint2* wr) {
+    constexpr int NU = decltype(nu)::value;
+    if constexpr (NU > 0) {
+      for (int sb = s0; sb < s1; sb += 32) {
+        // lane l works out the offsets of the two chunks of k-step sb + l;
+        // each k-step takes its pair by shuffle, once for all m-tiles
+        const int own0 = chunk_off(2 * (sb + lane)), own1 = chunk_off(2 * (sb + lane) + 1);
+        const int se = sb + 32 < s1 ? sb + 32 : s1;
+#pragma unroll 2
+        for (int s = sb; s < se; ++s) {
+          const int o0 = __shfl_sync(0xffffffffu, own0, s - sb);
+          const int o1 = __shfl_sync(0xffffffffu, own1, s - sb);
+          uint32_t a[NU][4];
+          if constexpr (PK == 1) {
+            const uint32_t pa = src0_s + 2 * (lane < 16 ? o0 : o1);
+#pragma unroll
+            for (int i = 0; i < NU; ++i) ldsm_x4(a[i], pa + 2 * base[i][0]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < NU; ++i) {
+              a[i][0] = lds32(src0 + o0 + base[i][0]);
+              a[i][1] = lds32(src0 + o0 + base[i][1]);
+              a[i][2] = lds32(src0 + o1 + base[i][0]);
+              a[i][3] = lds32(src0 + o1 + base[i][1]);
+            }
+          }
+          const uint2* ws = wr + (s - s0) * R::SLICE;
+#pragma unroll
+          for (int j = 0; j < NTC; ++j) {
+            const uint2 b = ws[j * 32];
+#pragma unroll
+            for (int i = 0; i < NU; ++i) mma_bf16(acc[i][j], a[i], b);
+          }
+        }
+      }
+    }
+  };
 
+  FSE_STAMP(2 * OUT);
+  for (int c = 0; c < R::NC; ++c) {
+    if (c + 1 < R::NC) {
+      R::load(c + 1, ring, wf);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();  // chunk c is in shared memory for every warp
+    const uint2* wr = ring + (c & 1) * R::KC * R::SLICE + ng * NTC * 32 + lane;
+    const int s0 = c * R::KC;
+    const int s1 = s0 + R::KC < KS ? s0 + R::KC : KS;
+    if (nunits == MT)
+      steps(Int<MT>(), s0, s1, wr);
+    else
+      steps(Int<MT - 1>(), s0, s1, wr);
+    if (c + 2 < R::NC) __syncthreads();  // every warp is done with this half
+  }
+  __syncthreads();  // the ring is free
+  FSE_STAMP(2 * OUT + 1);
+  next();
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    if (i >= nunits) continue;
+    const int mt = (warp + i * NWARPS) / NG;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = mt * 16 + g + 8 * h;
@@ -222,14 +408,14 @@ __device__ __forceinline__ void conv_layer(const bf16* __restrict__ src0,
         const int x = (r - y * WQ) * PK;
 #pragma unroll
         for (int j = 0; j < NTC; ++j) {
-          const int n = (nt0 + j) * 8 + 2 * t;
+          const int n = (ng * NTC + j) * 8 + 2 * t;
           if (PK == 1) {
-            epi(y, x, n, acc[j][2 * h], acc[j][2 * h + 1]);
+            epi(y, x, n, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
           } else {
             const int px = n >= COUT ? 1 : 0;
-            const int c = n - px * COUT;
-            epi(y, x + px, c, acc[j][2 * h], acc[j][2 * h + 1]);
-            if (c + 2 == COUT) {
+            const int cc = n - px * COUT;
+            epi(y, x + px, cc, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            if (cc + 2 == COUT) {
 #pragma unroll
               for (int cp = COUT; cp < COUT_PAD; cp += 2) epi(y, x + px, cp, 0.f, 0.f);
             }
@@ -237,6 +423,38 @@ __device__ __forceinline__ void conv_layer(const bf16* __restrict__ src0,
         }
       }
     }
+  }
+}
+
+// Copy l1's window that layer 6 reads (layer 5's region, 4 pixels in from
+// l1's edges) to the front of its buffer, in place: every thread reads its
+// part into registers before any writes. `between()` runs after the reads.
+template <int PK, typename Between>
+__device__ __forceinline__ void compact_l1(bf16* buf, Between between) {
+  constexpr int CS = Geo<PK>::CS36;
+  static_assert(CS % 4 == 0, "whole uint2 per pixel");
+  constexpr int U = CS / 4;  // uint2 per pixel
+  constexpr int D = (7 - 1) - (7 - 5);
+  constexpr int WC = cols_of(5), W1 = cols_of(1);
+  constexpr int N = rows_of(5) * WC * U;
+  constexpr int PER = (N + NTHREADS - 1) / NTHREADS;
+  uint2* p = reinterpret_cast<uint2*>(buf);
+  uint2 v[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * NTHREADS;
+    if (i < N) {
+      const int px = i / U, w = i - px * U;
+      const int y = px / WC, x = px - y * WC;
+      v[k] = p[((y + D) * W1 + x + D) * U + w];
+    }
+  }
+  __syncthreads();
+  between();
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * NTHREADS;
+    if (i < N) p[i] = v[k];
   }
 }
 
@@ -254,18 +472,32 @@ stack_kernel(const bf16* __restrict__ xin, bf16* __restrict__ yout,
   // N of each layer's GEMM in 8-column mma tiles: padded channels for PK = 1,
   // 2 * cout for PK = 2
   constexpr int N36 = PK == 1 ? 5 : 9, N72 = PK == 1 ? 9 : 18, N12 = PK == 1 ? 2 : 3;
+  // k-steps of each layer: 3 rows x (PK + 2) columns x chunks, halved, rounded up
+  constexpr int TX3 = 3 * (PK + 2);
+  constexpr int KS12 = (TX3 * 2 + 1) / 2, KS36 = (TX3 * 5 + 1) / 2, KS72 = (TX3 * 9 + 1) / 2,
+                KS6 = (TX3 * 10 + 1) / 2;
+  using R1 = Ring<N36, KS12, S::RING12>;
+  using R2 = Ring<N36, KS36, S::RING12>;
+  using R3 = Ring<N72, KS36, S::RING3>;
+  using R4 = Ring<N72, KS72, S::RING3>;
+  using R5 = Ring<N36, KS72, S::RING3>;
+  using R6 = Ring<N36, KS6, S::RING3>;
+  using R7 = Ring<N12, KS36, S::RING3>;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* bufA = reinterpret_cast<bf16*>(smem);
-  bf16* bufB = reinterpret_cast<bf16*>(smem + S::A);
-  bf16* bufC = reinterpret_cast<bf16*>(smem + S::A + S::B);
-  float* sp = reinterpret_cast<float*>(smem + S::A + S::B + S::C);
+  bf16* bufA = reinterpret_cast<bf16*>(smem + S::OFF_A);
+  bf16* bufB = reinterpret_cast<bf16*>(smem + S::OFF_B);
+  bf16* bufC = reinterpret_cast<bf16*>(smem + S::OFF_C);
+  uint2* ring12 = reinterpret_cast<uint2*>(smem + S::OFF_C);
+  uint2* ring3 = reinterpret_cast<uint2*>(smem + S::OFF_RING3);
+  float* sp = reinterpret_cast<float*>(smem + S::OFF_P);
 
+  FSE_STAMP(0);
   const size_t frame = (size_t)blockIdx.z * H2 * W2 * 12;
   xin += frame;
   yout += frame;
-  const int ty0 = blockIdx.y * TILE;
-  const int tx0 = blockIdx.x * TILE;
+  const int ty0 = blockIdx.y * TH;
+  const int tx0 = blockIdx.x * TW;
 
   // true iff pixel (y, x) of the region of layer L lies inside the image
   auto inside = [&](int layer, int y, int x) {
@@ -274,115 +506,143 @@ stack_kernel(const bf16* __restrict__ xin, bf16* __restrict__ yout,
     return iy >= 0 && iy < H2 && ix >= 0 && ix < W2;
   };
 
-  for (int i = threadIdx.x; i < P_TOTAL; i += NTHREADS) sp[i] = prm[i];
-
+  // the parameters, the input region and layer 1's weights all load at once
+  // with cp.async (a thread's loads in flight together, not one by one)
+  static_assert(S::P % 16 == 0 && (P_TOTAL * 4) % 16 == 0, "16-byte copies of the parameters");
+  for (int i = threadIdx.x; i < P_TOTAL / 4; i += NTHREADS)
+    cp_async16(sp + 4 * i, prm + 4 * i);
   // input region with SAME-pad zeros: 4 x 8 bytes per pixel (channels 12-15 zero)
   {
-    constexpr int R = region(0);
-    for (int i = threadIdx.x; i < R * R * 4; i += NTHREADS) {
+    constexpr int RW = cols_of(0);
+    for (int i = threadIdx.x; i < rows_of(0) * RW * 4; i += NTHREADS) {
       const int p = i >> 2, c4 = i & 3;
-      const int y = p / R, x = p - (p / R) * R;
-      uint2 v = make_uint2(0u, 0u);
+      const int y = p / RW, x = p - (p / RW) * RW;
+      bf16* dst = bufB + p * CS_IN + c4 * 4;
       if (c4 < 3 && inside(0, y, x)) {
         const int iy = ty0 - 7 + y, ix = tx0 - 7 + x;
-        v = *reinterpret_cast<const uint2*>(xin + ((size_t)iy * W2 + ix) * 12 + c4 * 4);
+        cp_async8(dst, xin + ((size_t)iy * W2 + ix) * 12 + c4 * 4);
+      } else {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
       }
-      *reinterpret_cast<uint2*>(bufB + p * CS_IN + c4 * 4) = v;
     }
   }
+  R1::load(0, ring12, w1);
+  cp_async_wait_all();
   __syncthreads();
 
   const float a1a = sp[P_SC + 0], a1b = sp[P_SC + 1];
   const float a2a = sp[P_SC + 2], a2b = sp[P_SC + 3];
   const float p7b = sp[P_SC + 4], p7s = sp[P_SC + 5];
+  auto nothing = [] {};
 
   // layer 1: conv 12->36, sinlu, relu6            in (B) -> l1 (A)
-  conv_layer<PK, 1, 0, CS_IN, 2, 0, 0, 0, N36, 36, 40>(bufB, bufB, w1,
+  conv_layer<PK, 1, 0, CS_IN, 2, 1, N36, 36, 40, R1>(bufB, bufB, w1, ring12,
       [&](int y, int x, int n, float v0, float v1) {
         float r0 = 0.f, r1 = 0.f;
         if (n < 36 && inside(1, y, x)) {
           r0 = relu6_f(sinlu_f(v0 + sp[P_B1 + n], a1a, a1b));
           r1 = relu6_f(sinlu_f(v1 + sp[P_B1 + n + 1], a1a, a1b));
         }
-        st2(bufA + (y * region(1) + x) * CS36 + n, r0, r1);
-      });
+        st2(bufA + (y * cols_of(1) + x) * CS36 + n, r0, r1);
+      },
+      [&] { R2::load(0, ring12, w2); });
   __syncthreads();
 
   // layer 2: conv 36->36, telu, + l1, sinlu, biased_prelu(36)   l1 (A) -> l2 (B)
-  conv_layer<PK, 2, 1, CS36, 5, 0, 0, 0, N36, 36, 40>(bufA, bufA, w2,
+  conv_layer<PK, 2, 1, CS36, 5, 1, N36, 36, 40, R2>(bufA, bufA, w2, ring12,
       [&](int y, int x, int n, float v0, float v1) {
         float r0 = 0.f, r1 = 0.f;
         if (n < 36 && inside(2, y, x)) {
-          const float2 s = ld2(bufA + ((y + 1) * region(1) + x + 1) * CS36 + n);
+          const float2 s = ld2(bufA + ((y + 1) * cols_of(1) + x + 1) * CS36 + n);
           r0 = telu_f(v0 + sp[P_B2 + n]) + s.x;
           r1 = telu_f(v1 + sp[P_B2 + n + 1]) + s.y;
           r0 = bprelu_f(sinlu_f(r0, a2a, a2b), sp[P_P2B + n], sp[P_P2S + n]);
           r1 = bprelu_f(sinlu_f(r1, a2a, a2b), sp[P_P2B + n + 1], sp[P_P2S + n + 1]);
         }
-        st2(bufB + (y * region(2) + x) * CS36 + n, r0, r1);
-      });
+        st2(bufB + (y * cols_of(2) + x) * CS36 + n, r0, r1);
+      },
+      nothing);
   __syncthreads();
 
+  FSE_STAMP(17);
+  // l1 keeps only the window layer 6 reads; the ring of layers 3-7 follows it
+  compact_l1<PK>(bufA, [&] { R3::load(0, ring3, w3); });
+
   // layer 3: conv 36->72                          l2 (B) -> l3 (C)
-  conv_layer<PK, 3, 2, CS36, 5, 0, 0, 0, N72, 72, 72>(bufB, bufB, w3,
+  conv_layer<PK, 3, 2, CS36, 5, 1, N72, 72, 72, R3>(bufB, bufB, w3, ring3,
       [&](int y, int x, int n, float v0, float v1) {
         float r0 = 0.f, r1 = 0.f;
         if (inside(3, y, x)) {
           r0 = v0 + sp[P_B3 + n];
           r1 = v1 + sp[P_B3 + n + 1];
         }
-        st2(bufC + (y * region(3) + x) * CS72 + n, r0, r1);
-      });
+        st2(bufC + (y * cols_of(3) + x) * CS72 + n, r0, r1);
+      },
+      [&] { R4::load(0, ring3, w4); });
   __syncthreads();
 
   // layer 4: conv 72->72, mish, biased_prelu(72), + l3, tanh, relu   l3 (C) -> l4 (B)
-  conv_layer<PK, 4, 3, CS72, 9, 0, 0, 0, N72, 72, 72>(bufC, bufC, w4,
+  conv_layer<PK, 4, 3, CS72, 9, 1, N72, 72, 72, R4>(bufC, bufC, w4, ring3,
       [&](int y, int x, int n, float v0, float v1) {
         float r0 = 0.f, r1 = 0.f;
         if (inside(4, y, x)) {
-          const float2 s = ld2(bufC + ((y + 1) * region(3) + x + 1) * CS72 + n);
+          const float2 s = ld2(bufC + ((y + 1) * cols_of(3) + x + 1) * CS72 + n);
           r0 = bprelu_f(mish_f(v0 + sp[P_B4 + n]), sp[P_P4B + n], sp[P_P4S + n]) + s.x;
           r1 = bprelu_f(mish_f(v1 + sp[P_B4 + n + 1]), sp[P_P4B + n + 1], sp[P_P4S + n + 1]) + s.y;
           r0 = fmaxf(tanh_f(r0), 0.f);
           r1 = fmaxf(tanh_f(r1), 0.f);
         }
-        st2(bufB + (y * region(4) + x) * CS72 + n, r0, r1);
-      });
+        st2(bufB + (y * cols_of(4) + x) * CS72 + n, r0, r1);
+      },
+      [&] { R5::load(0, ring3, w5); });
   __syncthreads();
 
   // layer 5: conv 72->36                          l4 (B) -> l5 (C)
-  conv_layer<PK, 5, 4, CS72, 9, 0, 0, 0, N36, 36, 40>(bufB, bufB, w5,
+  conv_layer<PK, 5, 4, CS72, 9, 1, N36, 36, 40, R5>(bufB, bufB, w5, ring3,
       [&](int y, int x, int n, float v0, float v1) {
         float r0 = 0.f, r1 = 0.f;
         if (n < 36 && inside(5, y, x)) {
           r0 = v0 + sp[P_B5 + n];
           r1 = v1 + sp[P_B5 + n + 1];
         }
-        st2(bufC + (y * region(5) + x) * CS36 + n, r0, r1);
-      });
+        st2(bufC + (y * cols_of(5) + x) * CS36 + n, r0, r1);
+      },
+      [&] { R6::load(0, ring3, w6); });
   __syncthreads();
 
-  // layer 6: conv over concat(l1, l5) 72->36, mish, relu6   l1 (A), l5 (C) -> l6 (B)
-  conv_layer<PK, 6, 1, CS36, 5, 5, CS36, 5, N36, 36, 40>(bufA, bufC, w6,
+  // layer 6: conv over concat(l1, l5) 72->36, mish, relu6   l1's window (A), l5 (C) -> l6 (B)
+  conv_layer<PK, 6, 5, CS36, 5, 2, N36, 36, 40, R6>(bufA, bufC, w6, ring3,
       [&](int y, int x, int n, float v0, float v1) {
         float r0 = 0.f, r1 = 0.f;
         if (n < 36 && inside(6, y, x)) {
           r0 = relu6_f(mish_f(v0 + sp[P_B6 + n]));
           r1 = relu6_f(mish_f(v1 + sp[P_B6 + n + 1]));
         }
-        st2(bufB + (y * region(6) + x) * CS36 + n, r0, r1);
-      });
+        st2(bufB + (y * cols_of(6) + x) * CS36 + n, r0, r1);
+      },
+      [&] { R7::load(0, ring3, w7); });
   __syncthreads();
 
   // layer 7: conv 36->12, biased_prelu(1)         l6 (B) -> output
-  conv_layer<PK, 7, 6, CS36, 5, 0, 0, 0, N12, 12, 12>(bufB, bufB, w7,
+  conv_layer<PK, 7, 6, CS36, 5, 1, N12, 12, 12, R7>(bufB, bufB, w7, ring3,
       [&](int y, int x, int n, float v0, float v1) {
         if (n < 12 && inside(7, y, x)) {
           const float r0 = bprelu_f(v0 + sp[P_B7 + n], p7b, p7s);
           const float r1 = bprelu_f(v1 + sp[P_B7 + n + 1], p7b, p7s);
           st2(yout + ((size_t)(ty0 + y) * W2 + (tx0 + x)) * 12 + n, r0, r1);
         }
-      });
+      },
+      nothing);
+#ifdef FSE_PROFILE
+  __syncthreads();
+  FSE_STAMP(16);
+#endif
+}
+
+template <int PK>
+cudaError_t set_smem() {
+  return cudaFuncSetAttribute(stack_kernel<PK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Smem<PK>::TOTAL);
 }
 
 // Launch the stack over `frames` frames on `stream`; returns cudaGetLastError().
@@ -390,16 +650,31 @@ template <int PK>
 int launch_stack(const void* x, void* y, const void* const* w, const void* prm, int frames,
                  int rows, int cols, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = set_smem<PK>();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(stack_kernel<PK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Smem<PK>::TOTAL);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((cols + TILE - 1) / TILE, (rows + TILE - 1) / TILE, frames);
+  const dim3 grid((cols + TW - 1) / TW, (rows + TH - 1) / TH, frames);
   stack_kernel<PK><<<grid, NTHREADS, Smem<PK>::TOTAL, (cudaStream_t)stream>>>(
       (const bf16*)x, (bf16*)y, (const uint2*)w[0], (const uint2*)w[1], (const uint2*)w[2],
       (const uint2*)w[3], (const uint2*)w[4], (const uint2*)w[5], (const uint2*)w[6],
       (const float*)prm, rows, cols);
   return (int)cudaGetLastError();
+}
+
+// The compiled kernel's attributes and its plan, for the wrapper's checks:
+// out[0..7] = registers a thread, local memory a thread (bytes; spills),
+// static shared memory, dynamic shared memory, threads a CTA, tile rows,
+// tile columns, ring bytes of layers 3-7. Returns a CUDA error code.
+template <int PK>
+int kernel_info(int* out, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = set_smem<PK>();
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, stack_kernel<PK>);
+  if (err != cudaSuccess) return (int)err;
+  const int v[8] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
+                    Smem<PK>::TOTAL, NTHREADS, TH, TW, Smem<PK>::RING3};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // namespace fse_stack

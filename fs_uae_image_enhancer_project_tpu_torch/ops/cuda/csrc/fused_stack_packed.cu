@@ -18,7 +18,12 @@
 // offset for free; in shared memory A[t] = O[t-1] is the previous pixel's
 // address, so K2 keeps K1's per-pixel buffers, tile and halo scheme, with
 // channel strides (20, 44, 76) that keep rows two pixels apart on distinct
-// banks (232,320 bytes of shared memory, one CTA per SM).
+// banks, one CTA per SM. Its weights are 2.5x K1's (0.77 MB), so the ring
+// that stages them in shared memory runs layers 3-6 in chunks (5-11
+// k-steps); the first design read 12.0 MB of weights a CTA from L2 (every
+// warp job again), this one 0.77 MB. With each B fragment now serving up to
+// 3 m-tiles in both forms, K2's fewer A loads a mma no longer make up for
+// its 4/3 of K1's multiply-adds, and it is the slower of the two.
 //
 // Bound at the bench's shape (one 576x752 frame: 288x376x12 bf16): the
 // useful work is K1's, 29.5 GFLOP, 29.8 us at 989 TFLOP/s dense bf16; the
@@ -33,6 +38,10 @@ extern "C" {
 
 int fse_fused_stack_packed_smem_bytes(void) { return fse_stack::Smem<2>::TOTAL; }
 
+int fse_fused_stack_packed_info(int* out, int device) {
+  return fse_stack::kernel_info<2>(out, device);
+}
+
 // The same interface as fse_fused_stack, with pair-packed B-fragment weights.
 int fse_fused_stack_packed(const void* x, void* y, const void* w1, const void* w2,
                            const void* w3, const void* w4, const void* w5, const void* w6,
@@ -41,5 +50,10 @@ int fse_fused_stack_packed(const void* x, void* y, const void* w1, const void* w
   const void* w[7] = {w1, w2, w3, w4, w5, w6, w7};
   return fse_stack::launch_stack<2>(x, y, w, prm, frames, rows, cols, device, stream);
 }
+
+#ifdef FSE_PROFILE
+// The phase stamps of the last launch (a build with -DFSE_PROFILE only).
+int fse_fused_stack_packed_profile(void* out) { return fse_stack::copy_stamps(out); }
+#endif
 
 }  // extern "C"

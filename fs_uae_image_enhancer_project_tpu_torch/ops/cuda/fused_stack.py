@@ -268,17 +268,18 @@ def check_input(u: torch.Tensor, sw: StackWeights, name: str = "fused_stack") ->
     if min(u.shape[:-1]) < 1 or (u.dim() == 4 and u.shape[0] > 65535):
         raise ValueError(f"{name} got an empty frame or too many frames {tuple(u.shape)}")
     for t in (*sw.frags, sw.prm):
-        if t.device != u.device or not t.is_contiguous():
-            raise ValueError("prepared weights must be contiguous and on the input's device")
+        if t.device != u.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("prepared weights must be contiguous, 16-byte aligned (the "
+                             "kernels stage them in 16-byte copies) and on the input's device")
 
 
-
-def launch_stack(entry: str, u: torch.Tensor, sw: StackWeights) -> torch.Tensor:
-    """Launch the C entry point ``entry`` (K1 or K2) on ``u`` on the current
-    stream; raises if the launch fails."""
+def launch_stack(entry: str, u: torch.Tensor, sw: StackWeights, lib=None) -> torch.Tensor:
+    """Launch the C entry point ``entry`` (K1 or K2) of ``lib`` (the
+    package's kernel library by default) on ``u`` on the current stream;
+    raises if the launch fails."""
     from .build import load_library
 
-    lib = load_library()
+    lib = load_library() if lib is None else lib
     out = torch.empty_like(u)
     frames = 1 if u.dim() == 3 else u.shape[0]
     rc = getattr(lib, entry)(
@@ -288,6 +289,26 @@ def launch_stack(entry: str, u: torch.Tensor, sw: StackWeights) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     return out
+
+
+INFO_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads", "tile_rows",
+             "tile_cols", "ring3_bytes")
+
+
+def kernel_info(entry: str, device=0, lib=None) -> dict:
+    """The compiled kernel's registers a thread, local memory a thread (its
+    spills), shared memory, threads a CTA and plan (tile, ring bytes of
+    layers 3-7), from ``<entry>_info`` (``cudaFuncGetAttributes``)."""
+    import ctypes
+
+    from .build import load_library
+
+    lib = load_library() if lib is None else lib
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    rc = getattr(lib, entry + "_info")(out, torch.device(device).index or 0)
+    if rc != 0:
+        raise RuntimeError(f"{entry}_info failed: CUDA error {rc}")
+    return dict(zip(INFO_KEYS, out))
 
 
 def fused_stack(u: torch.Tensor, sw: StackWeights) -> torch.Tensor:

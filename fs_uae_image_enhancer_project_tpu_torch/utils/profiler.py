@@ -12,6 +12,9 @@ the same :class:`BenchResult` and entry points:
   a local card needs no such workaround.
 - :func:`measure_roundtrip`: per-call latency including a copy of every
   output to the host.
+- :func:`device_times`: the device's time per call of a short kernel, with
+  the calls enqueued behind a sleep kernel so that the host's launch cost
+  is not counted (card only).
 - :func:`trace`: a ``torch.profiler`` context that records CUDA activity
   when CUPTI is there.
 
@@ -105,6 +108,34 @@ class _Chunk:
             self.end.synchronize()
             return self.start.elapsed_time(self.end)
         return (time.perf_counter() - self.t0) * 1e3
+
+
+def device_times(fn: Callable, n: int = 50, reps: int = 3, preroll_ms: float = 30.0) -> dict:
+    """Device time per call of ``fn`` (card only), with ``n`` calls back to
+    back, ``reps`` times: the median, min and max of the repeats' means. A
+    sleep kernel holds the stream while the host enqueues the calls, so the
+    events time the device and not the Python that launches it (a short
+    kernel takes less time than its wrapper). ``host_behind`` says that the
+    host took longer to enqueue than the sleep lasted, so gaps may be
+    counted."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = int(preroll_ms * 2e6)  # at most 2 GHz: the sleep lasts at least preroll_ms
+    per, behind = [], False
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        h0 = time.perf_counter()
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        behind |= (time.perf_counter() - h0) * 1e3 > preroll_ms
+        e.synchronize()
+        per.append(s.elapsed_time(e) / n)
+    return {"ms": float(np.median(per)), "min_ms": min(per), "max_ms": max(per),
+            "reps_ms": per, "host_behind": behind}
 
 
 def measure_chained(

@@ -88,6 +88,19 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                                                   dtype=torch.bfloat16))
 
 
+@pytest.mark.parametrize("entry,pk", [("fse_fused_stack", 1), ("fse_fused_stack_packed", 2)])
+def test_compiled_kernel_follows_the_plan(cuda, entry, pk):
+    """The compiled kernel's tile, threads, shared memory and ring are those
+    of ops/cuda/fused_stack_plan.py, which the CPU tests check."""
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_plan as plan
+
+    info = fs.kernel_info(entry, cuda)
+    assert info["dynamic_smem"] == plan.smem_bytes(pk) <= plan.SMEM_LIMIT
+    assert (info["tile_rows"], info["tile_cols"]) == plan.TILE
+    assert info["threads"] == 32 * plan.NWARPS
+    assert info["ring3_bytes"] == plan.smem(pk)["ring3"][1]
+
+
 @pytest.mark.parametrize("h2,w2", [(288, 376), (288, 368), (10, 14), (17, 33), (1, 1)])
 def test_k2_matches_plain(cuda, h2, w2):
     sw = k2.prepare_weights(_params(cuda), cuda)
