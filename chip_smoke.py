@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each printing one JSON line with its wall time:
 
@@ -8,15 +8,19 @@ Phases, each printing one JSON line with its wall time:
 2. build      nvcc build of the port's kernels (time, ptxas registers/spills);
               K1's and K2's registers, local memory (spills) and shared
               memory from cudaFuncGetAttributes, and their plan (tile, ring)
-              held to ops/cuda/fused_stack_plan.py
+              held to ops/cuda/fused_stack_plan.py; the same for every
+              width K4 is compiled at and each case's plan (its ring's
+              shared memory held to ops/cuda/lane_packing.py's), and for
+              K3's three modes (threads, pixels a thread); no kernel spills
 3. k1_parity  the fused-stack kernel (K1) against its plain PyTorch version,
               shipped weights, seeded inputs, half-res 288x376, 288x368 and
               290x375 (neither side a multiple of the 16x14 tile); three
               frames in one launch against three launches
 4. k2_parity  the pair-packed fused-stack kernel (K2) the same way, and
               against K1
-5. k4_parity  the lane-packing kernel (K4) against its plain version at the
-              bench's 12 GEMM shapes, grid 2: the accumulator and the output
+5. k4_parity  the lane-packing kernel (K4, wgmma) against its plain version
+              at the bench's 12 GEMM shapes, grid 2: the accumulator and the
+              output
 6. k3_parity  the palette-dither kernel (K3) against its plain version, byte
               for byte: 16 lores crops (188x144), one 376x288 crop and one
               ragged crop, N in {2, 32, 256, 1024}, every mode
@@ -27,7 +31,8 @@ Phases, each printing one JSON line with its wall time:
               1504x1152 images, 376x288 lores crops, kmeans_torch palettes 64
               and 256, five dithers, device_batch 16, counters from 0; then
               its rerun (nothing to do), k-means on the card against the CPU,
-              and the per-crop route against the batched one, PNG for PNG
+              and the per-crop route against the batched one, PNG for PNG,
+              with one worker and with two (spawned, a CUDA context each)
 10. kernel_bench  the two kernel benches (slice 3's main path), about a
               second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
@@ -35,9 +40,17 @@ Phases, each printing one JSON line with its wall time:
 11. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
-              device time a frame); of K4, its plain version and the
-              torch.matmul chain at the 12 cases; of K3, its plain version,
+              device time a frame); of K4 at the 12 cases, grid 64 (each
+              case's plan, its error there), its plain version, the device
+              time of one torch.matmul(bf16(a), w) times the 512 products
+              (cuBLAS's time for the same products: library_ms) and of the
+              eager torch.matmul chain (chain_ms); of K3, its plain version,
               cdist + topk, the batched k-means
+    turns     with --parent DIR (another checkout, e.g. the parent commit
+              unpacked with git archive under build/): K3 and K4 of both
+              trees, each in child processes of its own, parent, this tree,
+              this tree, parent (scripts/turns_k3_k4.py), on the datagen
+              phase's crops and k-means palettes
 12. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
@@ -275,7 +288,8 @@ def check_k4(recs: list) -> None:
 
 
 def library_lane_chain(a, w, grid: int):
-    """K4's chain with torch.matmul on bf16 (cuBLAS): the yardstick timed as
+    """K4's chain as eager torch with torch.matmul on bf16 (cuBLAS), about
+    2,560 launches a call: timed as chain_ms, which earlier PRs reported as
     library_ms. The port never calls it."""
     import torch
 
@@ -309,10 +323,21 @@ def kernel_bench(dev, duration_s: float = 1.0, fused_shape=(1, 576, 752, 3), lan
     return dict(launches={k: c.launches for k, c in counters.items()}, fused=fused, lane=lane)
 
 
+def library_matmul_ms(a, w, products: int) -> float:
+    """cuBLAS's time for K4's products: the device time of one
+    torch.matmul(bf16(a), w) (:func:`device_ms`), times ``products``. The
+    yardstick timed as library_ms; the port never calls it."""
+    import torch
+
+    ab = a.to(torch.bfloat16)
+    return device_ms(lambda: torch.matmul(ab, w), n=20)["ms"] * products
+
+
 def k4_timing(dev, grid: int = K4_BENCH_GRID, cases=None) -> list:
-    """K4, its plain version and the torch.matmul chain at the 12 cases and
-    ``grid``, CUDA-event medians, with each case's bound from its shape and
-    K4's error against the plain version at this grid."""
+    """K4, its plain version and the eager torch.matmul chain at the 12 cases
+    and ``grid`` (CUDA-event medians), cuBLAS's time for the same products
+    (:func:`library_matmul_ms`), with each case's bound from its shape, its
+    plan, and K4's error against the plain version at this grid."""
     import numpy as np
 
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import lane_packing as k4
@@ -326,15 +351,18 @@ def k4_timing(dev, grid: int = K4_BENCH_GRID, cases=None) -> list:
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
         kern = median_ms(lambda: k4.lane_packing_mm(a, w, grid), n=20, warmup=3)
         plain = median_ms(lambda: k4.lane_packing_mm_plain(a, w, grid), n=3, warmup=1)
-        lib = median_ms(lambda: library_lane_chain(a, w, grid), n=3, warmup=1)
+        chain = median_ms(lambda: library_lane_chain(a, w, grid), n=3, warmup=1)
+        lib = library_matmul_ms(a, w, k4.REPS * grid)
         err = k4_errors(k4.lane_packing_mm(a, w, grid), k4.lane_packing_mm_plain(a, w, grid))
         plan = k4.tile_plan(m, k, n)
         rows.append(dict(
             case=f"{label} {variant}", shape=[m, k, n], grid=grid, gflop=flops / 1e9,
-            k4_ms=kern, plain_ms=plain, library_ms=lib, bound_ms=max(ops_ms, bytes_ms),
+            k4_ms=kern, plain_ms=plain, library_ms=lib, chain_ms=chain,
+            slower_than_library=kern > lib, bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             share_of_bound=max(ops_ms, bytes_ms) / kern, tflops_raw=flops / kern / 1e9,
-            ctas=plan.ctas, ntw=plan.ntw, smem=plan.smem, **err))
+            n_per_instruction=plan.nc, ctas=plan.ctas,
+            ring="resident" if plan.resident else "streamed", smem=plan.smem, **err))
     return rows
 
 
@@ -489,12 +517,12 @@ def datagen(dev) -> dict:
             Image.fromarray(gradient_noise(1152, 1504, seed=10 + i, sigma=48.0)).save(
                 os.path.join(src, f"img_{i}.png"))
 
-        def gen_cfg(dest, images, **kw):
+        def gen_cfg(dest, images, workers=1, **kw):
             return GeneratorConfig(
                 train_images=images, dest_dir=os.path.join(tmp, dest), crop_w=CROP_W,
                 crop_h=CROP_H, resolutions=("lores",), colorspaces=("RGB444",),
                 palettes=PALETTES, dithers=DITHERS, palette_algorithm="kmeans_torch",
-                quantize_backend="device", max_crops_per_image=8, workers=1,
+                quantize_backend="device", max_crops_per_image=8, workers=workers,
                 cache_dir=os.path.join(tmp, "cache_" + dest), verbose=0, device=str(dev),
                 **kw)
 
@@ -533,6 +561,14 @@ def datagen(dev) -> dict:
         per_launches = k3.palette_dither.launches - before
         per_out = tree_bytes(per.dest_dir)
 
+        # the per-crop route with two workers: spawned, a CUDA context each
+        # (their launches are counted in their own processes)
+        two = gen_cfg("percrop_w2", [os.path.join(src, "img_0.png")], workers=2)
+        t0 = time.perf_counter()
+        two_stats = DatasetGenerator(two).run()
+        two_s = time.perf_counter() - t0
+        two_out = tree_bytes(two.dest_dir)
+
         # where the batched run's time goes: the same run again, into a new
         # directory, with timers around its stages
         again = gen_cfg("breakdown", [src], device_batch=16)
@@ -544,9 +580,12 @@ def datagen(dev) -> dict:
         generator_seconds=gen_s, styled_crops_per_s=styled / gen_s,
         rerun_generated=rerun["generated_this_run"], rerun_missing=rerun["missing"],
         kmeans_colours_differing_card_vs_cpu=km_differ, percrop_stats=per_stats,
-        percrop_styled=len(per_styled), percrop_k3_launches=per_launches,
+        percrop_styled=len(per_styled), percrop_files=len(per_out),
+        percrop_k3_launches=per_launches,
         percrop_seconds=per_s, percrop_styled_crops_per_s=len(per_styled) / per_s,
         percrop_files_differing_from_batched=sum(per_out[k] != out.get(k) for k in per_out),
+        workers2_stats=two_stats, workers2_files=len(two_out), workers2_seconds=two_s,
+        workers2_files_differing_from_batched=sum(two_out[k] != out.get(k) for k in two_out),
         breakdown=breakdown, arrs=arrs, stacks=stacks)
 
 
@@ -596,8 +635,14 @@ def k3_timing(dev, arrs, stacks):
     return rows, kmeans_ms
 
 
-def main() -> int:
+def main(argv=None) -> int:
     global _phase
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="another checkout whose K3 and K4 to time in turns with these")
+    args = ap.parse_args(argv)
     threading.Thread(target=_watchdog, daemon=True).start()
 
     import torch
@@ -613,9 +658,11 @@ def main() -> int:
     from fs_uae_image_enhancer_project_tpu_torch.export.onnx_import import import_pix_shuffle
     from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import build
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_packed as k2
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_plan as plan
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import lane_packing as k4
     from fs_uae_image_enhancer_project_tpu_torch.ops.pixel_shuffle import pixel_unshuffle
     from fs_uae_image_enhancer_project_tpu_torch.runtime.sidecar import (
         SidecarClient, SidecarServer)
@@ -643,11 +690,27 @@ def main() -> int:
     ptxas = [line.strip() for line in build.build_info["ptxas"].splitlines()
              if any(k in line for k in ("Compiling entry", "registers", "spill", "smem"))]
     info = {"K1": fs.kernel_info("fse_fused_stack", dev),
-            "K2": fs.kernel_info("fse_fused_stack_packed", dev)}
+            "K2": fs.kernel_info("fse_fused_stack_packed", dev),
+            "K3": k3.kernel_info(dev)}
+    # K4: every compiled width (with a one-chunk ring), then each case's plan
+    k4_widths = {nc: k4.kernel_info(k4.TilePlan(1, nc, 1, 1, 1, 1, True, 0), dev)
+                 for nc in k4.WIDTHS}
+    k4_plans = {f"{c[0]} {c[1]}": k4.tile_plan(*c[2:]) for c in k4.CASES}
+    k4_plans = {case: (p, k4.kernel_info(p, dev)) for case, p in k4_plans.items()}
+    info["K4"] = {case: dict(n_per_instruction=p.nc, ctas=p.ctas,
+                             ring="resident" if p.resident else "streamed", **i)
+                  for case, (p, i) in k4_plans.items()}
     emit("build", t0, build_seconds=round(build.build_info["seconds"], 3),
          built=build.build_info["built"], smem_bytes=lib.fse_fused_stack_smem_bytes(),
          k2_smem_bytes=lib.fse_fused_stack_packed_smem_bytes(), kernel_info=info,
-         ptxas=ptxas)
+         k4_widths=k4_widths, ptxas=ptxas)
+    check(info["K3"]["local_bytes"] == 0, f"K3 spills: {info['K3']}")
+    for nc, i in k4_widths.items():
+        check(i["local_bytes"] == 0 and i["chains"] == k4.WIDTHS[nc],
+              f"K4 at width {nc} spills or is not the plan's: {i}")
+    for case, (p, i) in k4_plans.items():
+        check(i["dynamic_smem"] == p.smem <= k4.SMEM_LIMIT and i["threads"] == k4.THREADS,
+              f"K4 {case}: compiled {i}, plan {p}")
     for pk, name in ((1, "K1"), (2, "K2")):
         want = dict(dynamic_smem=plan.smem_bytes(pk), threads=32 * plan.NWARPS,
                     tile_rows=plan.TILE[0], tile_cols=plan.TILE[1],
@@ -688,8 +751,6 @@ def main() -> int:
     # 6. k3_parity: byte equality with the plain version at every N and mode
     _phase = "k3_parity"
     t0 = time.perf_counter()
-    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
-
     k3_par = k3_parity(dev)
     emit("k3_parity", t0, **k3_par)
     check(not k3_par["differing"], f"K3 differs from its plain version: {k3_par['differing']}")
@@ -771,6 +832,11 @@ def main() -> int:
           f"per-crop run: {dg['percrop_stats']}, {dg['percrop_styled']} styled")
     check(dg["percrop_files_differing_from_batched"] == 0,
           "the per-crop route's PNGs differ from the batched run's")
+    check(dg["workers2_stats"]["missing"] == 0
+          and dg["workers2_files"] == dg["percrop_files"],
+          f"two-worker run: {dg['workers2_stats']}, {dg['workers2_files']} files")
+    check(dg["workers2_files_differing_from_batched"] == 0,
+          "the two-worker per-crop route's PNGs differ from the batched run's")
 
     # 10. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
@@ -829,6 +895,24 @@ def main() -> int:
          kmeans_ms=kmeans_ms, datagen_styled_crops_per_s=dg["styled_crops_per_s"],
          nvidia_smi=smi)
 
+    # turns: K3 and K4 against another tree's, in child processes
+    if args.parent:
+        _phase = "turns"
+        t0 = time.perf_counter()
+        from fs_uae_image_enhancer_project_tpu_torch.datagen.quantize import (
+            generate_palettes_kmeans_torch_batch)
+        from fs_uae_image_enhancer_project_tpu_torch.scripts import turns_k3_k4
+
+        with tempfile.TemporaryDirectory() as tmp:
+            npz = os.path.join(tmp, "k3_inputs.npz")
+            np.savez(npz, crops=dg["arrs"], **{
+                f"pal{k}": generate_palettes_kmeans_torch_batch(dg["stacks"], k, device=dev)
+                .cpu().numpy() for k in PALETTES})
+            turns = turns_k3_k4.main(args.parent, npz)
+        emit("turns", t0, parent=args.parent, order=turns["order"], ok=turns["ok"],
+             summary=turns["summary"], nvidia_smi=smi)
+        check(turns["ok"], "a kernel of the turns differs from its plain version")
+
     # 12. kernels
     _phase = "kernels"
     kernels = [dict(
@@ -858,7 +942,7 @@ def main() -> int:
              launches=kb["launches"]["lane_packing_mm"], max_abs_err=k4_ref["acc_max_abs"],
              ms=k4_ref["k4_ms"], kernel_ms=k4_ref["k4_ms"], plain_ms=k4_ref["plain_ms"],
              bound_ms=k4_ref["bound_ms"], bound_by=k4_ref["bound_by"],
-             library_ms=k4_ref["library_ms"])]
+             library_ms=k4_ref["library_ms"], chain_ms=k4_ref["chain_ms"])]
     emit("done", t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -869,7 +953,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except Exception as e:  # report the phase, then fail
         print(json.dumps({"phase": _phase, "error": f"{type(e).__name__}: {e}"}), flush=True)
         raise

@@ -140,10 +140,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         if hasattr(lib, name + "_profile"):  # a build with -DFSE_PROFILE
             getattr(lib, name + "_profile").argtypes = [p]
             getattr(lib, name + "_profile").restype = i
-    lib.fse_lane_packing.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.fse_lane_packing.argtypes = [p] * 4 + [i] * 11 + [p]
     lib.fse_lane_packing.restype = i
     lib.fse_palette_dither.argtypes = [p] * 4 + [i] * 6 + [ctypes.POINTER(i), i, p]
     lib.fse_palette_dither.restype = i
+    # not in a library built from an older tree (a parent's fused-stack sweep)
+    for name, args in (("fse_lane_packing_info", [ctypes.POINTER(i)] + [i] * 5),
+                       ("fse_palette_dither_info", [ctypes.POINTER(i), i])):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i
 
 
 def load_library(csrc: Optional[str] = None, defines=()) -> ctypes.CDLL:

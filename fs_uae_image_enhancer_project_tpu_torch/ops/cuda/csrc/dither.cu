@@ -21,16 +21,29 @@
 // 110.9 M pairs, 1.1 GFLOP: 16.6 us at the H100's 67 TFLOP/s fp32. The bytes
 // (2.6 MB in and out) take under 1 us, so the kernel is bound by operations.
 //
-// This first design: one thread per pixel, 256 pixels per CTA, one CTA row
-// per crop (blockIdx.y). The crop's palette, as float4 (r, g, b, luminance),
-// is staged in shared memory (16 KB at N = 1024) and read as a broadcast. One
-// pass over the N colours keeps the best two with strict '<', which is the
-// Pallas kernel's tie rule. No 512-pixel padding and no sentinel palette rows:
-// the ragged last CTA of a crop masks its own tail.
+// Design. The search is on integers (a float search of one pixel a thread
+// took about 14 instructions a pair): for pixel x and colour j
+// the key 1024 (|p_j|^2 - 2 x.p_j) + j is exact in int32 (within about
+// +-2e8), orders the colours by distance and then by index, and carries the
+// index in its low 10 bits. So the nearest colour is the smallest key, the
+// second nearest the second smallest (the Pallas kernel's strict-'<' rule),
+// with no selects: MAP keeps k1 = min(k1, key), the two-nearest search
+// k2 = min(k2, max(k1, key)); k1 = min(k1, key). The shared palette holds
+// (r | g << 8 | b << 16, 1024 |p_j|^2 + j) a colour, so a key is one __dp4a
+// on the packed bytes and one multiply-add: 3 integer instructions a pair for
+// MAP, 5 for the others (ptxas fuses pairs of mins into a 3-way VIMNMX3;
+// the compiled loop, with its share of the load and the loop's own
+// instructions, is 3.5 and 5.5 a pair: scripts/sass_k3.py). Each thread
+// takes FSE_K3_PIX pixels (strided by the block), so one broadcast load of a
+// palette entry serves all of them; 3 at 128 threads a CTA was the fastest
+// of 1-4 pixels and 64-256 threads on an H100 (scripts/sweep_k3_k4.py). Then
+// i = k1 & 1023 and d1 = |x|^2 + (k1 >> 10), exact, for the d1 == 0 rule.
+// One CTA row per crop (blockIdx.y); the ragged last CTA of a crop masks its
+// own tail.
 //
 // Byte equality with the Pallas kernel (for integer-valued pixels, as uint8
 // input is) rests on these:
-// - the squared distances are integers below 2^24, exact in any order;
+// - the distances are exact integers, and so are the keys that order them;
 // - the palette luminance is an input, computed as the JAX wrapper computes it
 //   (numpy's float32 product of the palette with the weights);
 // - the pixel luminance is fma(b, L2, fma(r, L0, g * L1)), the contraction
@@ -44,12 +57,20 @@
 // on the caller's stream, never synchronises and allocates nothing.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BLOCK = 256;
+#ifndef FSE_K3_BLOCK
+#define FSE_K3_BLOCK 128
+#endif
+#ifndef FSE_K3_PIX
+#define FSE_K3_PIX 3
+#endif
+constexpr int BLOCK = FSE_K3_BLOCK;  // threads a CTA
+constexpr int PIX = FSE_K3_PIX;      // pixels a thread
 constexpr int MAX_COLORS = 1024;
 constexpr int MODE_MAP = 0, MODE_CHECKER = 1, MODE_ORDERED = 2;
 
@@ -66,61 +87,75 @@ __global__ void __launch_bounds__(BLOCK) palette_dither_kernel(
     const uint8_t* __restrict__ img, const uint8_t* __restrict__ pal,
     const float* __restrict__ pal_lum, uint8_t* __restrict__ out, int n_px, int width,
     int n, Bayer bayer) {
-  __shared__ float4 spal[MAX_COLORS];
+  __shared__ int2 skey[MAX_COLORS];   // packed rgb, 1024 |p|^2 + j
+  __shared__ float slum[MAX_COLORS];  // palette luminance
   const int b = blockIdx.y;
   const uint8_t* pb = pal + (size_t)b * n * 3;
   const float* lb = pal_lum + (size_t)b * n;
-  for (int j = threadIdx.x; j < n; j += BLOCK)
-    spal[j] = make_float4(pb[3 * j], pb[3 * j + 1], pb[3 * j + 2], lb[j]);
+  for (int j = threadIdx.x; j < n; j += BLOCK) {
+    const int r = pb[3 * j], g = pb[3 * j + 1], bl = pb[3 * j + 2];
+    skey[j] = make_int2(r | (g << 8) | (bl << 16), 1024 * (r * r + g * g + bl * bl) + j);
+    if (MODE == MODE_ORDERED) slum[j] = lb[j];
+  }
   __syncthreads();
 
-  const int p = blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= n_px) return;
-  const size_t o = ((size_t)b * n_px + p) * 3;
-  const float r = img[o], g = img[o + 1], bl = img[o + 2];
-
-  float d1 = INFINITY, d2 = INFINITY;
-  int i1 = 0, i2 = 0;
-#pragma unroll 4
+  const int p0 = blockIdx.x * BLOCK * PIX + threadIdx.x;
+  const uint8_t* ib = img + (size_t)b * n_px * 3;
+  unsigned x[PIX];
+  int k1[PIX], k2[PIX];
+#pragma unroll
+  for (int i = 0; i < PIX; ++i) {
+    const int p = p0 + i * BLOCK;
+    x[i] = p < n_px ? ib[3 * p] | (ib[3 * p + 1] << 8) | (ib[3 * p + 2] << 16) : 0u;
+    k1[i] = k2[i] = INT_MAX;
+  }
+#pragma unroll 2
   for (int j = 0; j < n; ++j) {
-    const float4 c = spal[j];
-    const float dr = r - c.x, dg = g - c.y, db = bl - c.z;
-    const float d = dr * dr + dg * dg + db * db;  // exact: integers below 2^24
-    if (MODE == MODE_MAP) {
-      if (d < d1) { d1 = d; i1 = j; }
-    } else {
-      const bool lt1 = d < d1, lt2 = d < d2;
-      d2 = lt1 ? d1 : (lt2 ? d : d2);
-      i2 = lt1 ? i1 : (lt2 ? j : i2);
-      d1 = lt1 ? d : d1;
-      i1 = lt1 ? j : i1;
+    const int2 c = skey[j];
+#pragma unroll
+    for (int i = 0; i < PIX; ++i) {
+      const int key = c.y - ((int)__dp4a(x[i], (unsigned)c.x, 0u) << 11);
+      if (MODE != MODE_MAP) k2[i] = min(k2[i], max(k1[i], key));
+      k1[i] = min(k1[i], key);
     }
   }
 
-  int chosen = i1;
-  if (MODE != MODE_MAP && d1 != 0.0f) {
-    const int x = p % width, y = p / width;
-    if (MODE == MODE_CHECKER) {
-      chosen = ((x + y) & 1) ? i2 : i1;
-    } else {
-      const float lum = __fmaf_rn(bl, L2, __fmaf_rn(r, L0, __fmul_rn(g, L1)));
-      const float l1 = spal[i1].w, l2 = spal[i2].w;
-      const bool swap = l1 > l2;
-      const int lo_i = swap ? i2 : i1, hi_i = swap ? i1 : i2;
-      const float lo = fminf(l1, l2), hi = fmaxf(l1, l2);
-      const float den = __fsub_rn(hi, lo);
-      float frac = fabsf(den) < 1e-6f ? 0.0f
-                                      : __fdiv_rn(__fsub_rn(lum, lo), den == 0.0f ? 1.0f : den);
-      frac = fminf(fmaxf(frac, 0.0f), 1.0f);
-      const int m = bayer.m;
-      const float thresh = __fdiv_rn((float)bayer.v[(y % m) * m + (x % m)], (float)(m * m));
-      chosen = frac > thresh ? hi_i : lo_i;
+#pragma unroll
+  for (int i = 0; i < PIX; ++i) {
+    const int p = p0 + i * BLOCK;
+    if (p >= n_px) break;
+    const int r = x[i] & 255, g = (x[i] >> 8) & 255, bl = x[i] >> 16;
+    const int i1 = k1[i] & (MAX_COLORS - 1);
+    int chosen = i1;
+    if (MODE != MODE_MAP && r * r + g * g + bl * bl + (k1[i] >> 10) != 0) {
+      const int i2 = k2[i] & (MAX_COLORS - 1);
+      const int px = p % width, py = p / width;
+      if (MODE == MODE_CHECKER) {
+        chosen = ((px + py) & 1) ? i2 : i1;
+      } else {
+        const float lum =
+            __fmaf_rn((float)bl, L2, __fmaf_rn((float)r, L0, __fmul_rn((float)g, L1)));
+        const float l1 = slum[i1], l2 = slum[i2];
+        const bool swap = l1 > l2;
+        const int lo_i = swap ? i2 : i1, hi_i = swap ? i1 : i2;
+        const float lo = fminf(l1, l2), hi = fmaxf(l1, l2);
+        const float den = __fsub_rn(hi, lo);
+        float frac = fabsf(den) < 1e-6f
+                         ? 0.0f
+                         : __fdiv_rn(__fsub_rn(lum, lo), den == 0.0f ? 1.0f : den);
+        frac = fminf(fmaxf(frac, 0.0f), 1.0f);
+        const int m = bayer.m;
+        const float thresh =
+            __fdiv_rn((float)bayer.v[(py % m) * m + (px % m)], (float)(m * m));
+        chosen = frac > thresh ? hi_i : lo_i;
+      }
     }
+    const unsigned c = (unsigned)skey[chosen].x;
+    uint8_t* o = out + ((size_t)b * n_px + p) * 3;
+    o[0] = (uint8_t)(c & 255);
+    o[1] = (uint8_t)((c >> 8) & 255);
+    o[2] = (uint8_t)(c >> 16);
   }
-  const float4 c = spal[chosen];
-  out[o] = (uint8_t)c.x;
-  out[o + 1] = (uint8_t)c.y;
-  out[o + 2] = (uint8_t)c.z;
 }
 
 }  // namespace
@@ -145,7 +180,7 @@ int fse_palette_dither(const void* img, const void* pal, const void* pal_lum, vo
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int n_px = height * width;
-  const dim3 grid((n_px + BLOCK - 1) / BLOCK, batch);
+  const dim3 grid((n_px + BLOCK * PIX - 1) / (BLOCK * PIX), batch);
   const auto* x = (const uint8_t*)img;
   const auto* p = (const uint8_t*)pal;
   const auto* l = (const float*)pal_lum;
@@ -158,6 +193,31 @@ int fse_palette_dither(const void* img, const void* pal, const void* pal_lum, vo
   else
     palette_dither_kernel<MODE_ORDERED><<<grid, BLOCK, 0, s>>>(x, p, l, y, n_px, width, n, bay);
   return (int)cudaGetLastError();
+}
+
+// The compiled kernels: registers a thread of the MAP, CHECKER and ORDERED
+// instantiations, the most local memory a thread (spills) and static shared
+// memory of the three, threads a CTA and pixels a thread. out holds 7 ints.
+int fse_palette_dither_info(int* out, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes at[3];
+  const void* fns[3] = {(const void*)palette_dither_kernel<MODE_MAP>,
+                        (const void*)palette_dither_kernel<MODE_CHECKER>,
+                        (const void*)palette_dither_kernel<MODE_ORDERED>};
+  int local = 0, smem = 0;
+  for (int i = 0; i < 3; ++i) {
+    err = cudaFuncGetAttributes(&at[i], fns[i]);
+    if (err != cudaSuccess) return (int)err;
+    out[i] = at[i].numRegs;
+    local = at[i].localSizeBytes > (size_t)local ? (int)at[i].localSizeBytes : local;
+    smem = at[i].sharedSizeBytes > (size_t)smem ? (int)at[i].sharedSizeBytes : smem;
+  }
+  out[3] = local;
+  out[4] = smem;
+  out[5] = BLOCK;
+  out[6] = PIX;
+  return 0;
 }
 
 }  // extern "C"

@@ -8,8 +8,9 @@ Counterpart of ``fs_uae_image_enhancer_project_tpu/ops/pallas/dither.py``
 nearest and second-nearest palette colours (ties to the lowest index), then
 MAP, CHECKER or ORDERED (fp32 Bayer compare), then the chosen colour. It is
 bound by the N distance evaluations per pixel on the CUDA cores (the source
-note counts them); its design is one thread per pixel with the palette in
-shared memory and one pass that keeps the best two.
+note counts them); its design searches on exact int32 keys
+1024 (|p|^2 - 2 x.p) + j, which order the colours by distance and index and
+carry the index, a few pixels a thread against a palette in shared memory.
 
 - :func:`palette_dither` is the kernel's wrapper. A CUDA tensor launches the
   kernel (or raises); a CPU tensor takes :func:`palette_dither_plain`. Its
@@ -111,20 +112,17 @@ def _pixel_luminance(x: torch.Tensor) -> torch.Tensor:
     return (x[..., 2].to(f64) * l2 + t.to(f64)).to(f32)
 
 
-def palette_dither_plain(images: torch.Tensor, palettes: torch.Tensor, method: str = "none",
-                         bayer=None, pal_lum: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K3's function in eager torch, on any device: (B, H, W, 3) uint8 or
-    float32 pixels and (B, N, 3) uint8 palettes -> (B, H, W, 3) uint8."""
-    mode = _mode(method, bayer)
-    _check(images, palettes, pal_lum)
-    b, h, w, _ = images.shape
+def nearest_two(x: torch.Tensor, palettes: torch.Tensor, second: bool = True):
+    """The search of :func:`palette_dither_plain`: for (B, P, 3) fp32 pixels
+    and (B, N, 3) uint8 palettes, the nearest colour ``i1`` by squared RGB
+    distance (the first index of the minimum), its distance ``d1``, and,
+    with ``second``, the nearest other index ``i2`` (else None)."""
+    b, npx, _ = x.shape
     n = palettes.shape[1]
-    dev = images.device
-    x = images.reshape(b, h * w, 3).to(torch.float32)
     pal = palettes.to(torch.float32)
     i1s, d1s, i2s = [], [], []
     step = max(1, _PLAIN_CHUNK // (b * n))
-    for lo in range(0, h * w, step):
+    for lo in range(0, npx, step):
         xc = x[:, lo:lo + step]
         diff = xc[:, :, None, :] - pal[:, None, :, :]
         sq = diff * diff
@@ -132,12 +130,23 @@ def palette_dither_plain(images: torch.Tensor, palettes: torch.Tensor, method: s
         i1 = d.argmin(dim=2, keepdim=True)  # first index of the minimum
         d1s.append(d.gather(2, i1)[..., 0])
         i1s.append(i1[..., 0])
-        if mode != MODE_MAP:
+        if second:
             i2s.append(d.scatter(2, i1, float("inf")).argmin(dim=2))
-    i1, d1 = torch.cat(i1s, 1), torch.cat(d1s, 1)
+    return torch.cat(i1s, 1), torch.cat(d1s, 1), torch.cat(i2s, 1) if second else None
+
+
+def palette_dither_plain(images: torch.Tensor, palettes: torch.Tensor, method: str = "none",
+                         bayer=None, pal_lum: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3's function in eager torch, on any device: (B, H, W, 3) uint8 or
+    float32 pixels and (B, N, 3) uint8 palettes -> (B, H, W, 3) uint8."""
+    mode = _mode(method, bayer)
+    _check(images, palettes, pal_lum)
+    b, h, w, _ = images.shape
+    dev = images.device
+    x = images.reshape(b, h * w, 3).to(torch.float32)
+    i1, d1, i2 = nearest_two(x, palettes, second=mode != MODE_MAP)
     chosen = i1
     if mode != MODE_MAP:
-        i2 = torch.cat(i2s, 1)
         yy, xx = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
                                 indexing="ij")
         if mode == MODE_CHECKER:
@@ -161,6 +170,29 @@ def palette_dither_plain(images: torch.Tensor, palettes: torch.Tensor, method: s
     return out.reshape(b, h, w, 3)
 
 
+def launch(images: torch.Tensor, palettes: torch.Tensor, mode: int, bayer, lum: torch.Tensor,
+           lib=None) -> torch.Tensor:
+    """One launch of the kernel on the images' current stream, inputs already
+    checked; ``lib`` is another build of the kernels (a sweep of its
+    pixels a thread); uncounted."""
+    from .build import load_library
+
+    b, h, w, _ = images.shape
+    if mode == MODE_ORDERED:
+        bay = np.ascontiguousarray(np.asarray(bayer), dtype=np.int32)
+        bay_m, bay_ptr = bay.shape[0], bay.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    else:
+        bay_m, bay_ptr = 0, None
+    out = torch.empty_like(images)
+    rc = (load_library() if lib is None else lib).fse_palette_dither(
+        images.data_ptr(), palettes.data_ptr(), lum.data_ptr(), out.data_ptr(),
+        b, h, w, palettes.shape[1], mode, bay_m, bay_ptr, images.device.index,
+        torch.cuda.current_stream(images.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"palette_dither kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def palette_dither(images: torch.Tensor, palettes: torch.Tensor, method: str = "none",
                    bayer=None, pal_lum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3's wrapper: (B, H, W, 3) uint8 crops, (B, N, 3) uint8 palettes ->
@@ -182,27 +214,29 @@ def palette_dither(images: torch.Tensor, palettes: torch.Tensor, method: str = "
     if not images.is_contiguous() or not palettes.is_contiguous():
         raise ValueError("palette_dither takes contiguous images and palettes")
     lum = palette_luminance(palettes) if pal_lum is None else pal_lum.contiguous()
-    b, h, w, _ = images.shape
-    if mode == MODE_ORDERED:
-        bay = np.ascontiguousarray(np.asarray(bayer), dtype=np.int32)
-        bay_m, bay_ptr = bay.shape[0], bay.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
-    else:
-        bay_m, bay_ptr = 0, None
-    from .build import load_library
-
-    lib = load_library()
-    out = torch.empty_like(images)
-    rc = lib.fse_palette_dither(
-        images.data_ptr(), palettes.data_ptr(), lum.data_ptr(), out.data_ptr(),
-        b, h, w, palettes.shape[1], mode, bay_m, bay_ptr, images.device.index,
-        torch.cuda.current_stream(images.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"palette_dither kernel launch failed: CUDA error {rc}")
+    out = launch(images, palettes, mode, bayer, lum)
     palette_dither.launches += 1
     return out
 
 
 palette_dither.launches = 0
+
+INFO_KEYS = ("registers_map", "registers_checker", "registers_ordered", "local_bytes",
+             "static_smem", "threads", "pixels_per_thread")
+
+
+def kernel_info(device=0, lib=None) -> dict:
+    """The compiled kernel's registers a thread (per mode), local memory a
+    thread (its spills), static shared memory, threads a CTA and pixels a
+    thread (``fse_palette_dither_info``)."""
+    from .build import load_library
+
+    lib = load_library() if lib is None else lib
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    rc = lib.fse_palette_dither_info(out, torch.device(device).index or 0)
+    if rc != 0:
+        raise RuntimeError(f"fse_palette_dither_info failed: CUDA error {rc}")
+    return dict(zip(INFO_KEYS, out))
 
 
 def kernel_ops(images: torch.Tensor, palettes: torch.Tensor, method: str) -> float:

@@ -20,7 +20,11 @@ the plain version.
   launches are counted in ``lane_packing_mm.launches``.
 - :func:`lane_packing_mm_plain` is the chain in fp32 on bf16-rounded ``a``
   and ``w``, the product taken anew at each step as the kernel does.
-- :func:`tile_plan` picks the kernel's column tiling for a shape.
+- :func:`tile_plan` picks the kernel's plan for a shape: the columns a CTA
+  (one ``wgmma`` N), whether W stays resident in shared memory or streams
+  through a ring, and the ring's chunks.
+- :func:`prepare_weight` lays W out as the exact bytes of the kernel's
+  shared-memory image (K-major core matrices, 32-byte swizzle).
 - :data:`CASES` are the bench's 12 GEMM shapes, (layer class, variant, m,
   k, n): per class the baseline (m, 9 cin) x (9 cin, cout), packed-2
   (m/2, 12 cin) x (12 cin, 2 cout) and packed-3 (m/3, 18 cin) x
@@ -28,19 +32,34 @@ the plain version.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
-
-from .fused_stack import fragments
 
 # m = STRIP(24) * wp(384): one fused-stack strip's matmul rows on the TPU
 M_FULL = 24 * 384
 REPS = 8  # products per grid step
 SMS = 132  # the H100 SXM's streaming multiprocessors
 SMEM_LIMIT = 232448  # bytes of shared memory a block may take
-BM = 64  # rows per CTA (csrc/lane_packing.cu)
+# csrc/lane_packing.cu's constants
+BM = 64  # rows per CTA: one wgmma M
+THREADS = 160  # one consumer warpgroup and a producer warp
+SLACK = 256  # alignment of the dynamic shared memory
+ROW_BYTES = 32  # a k-step of one row of an operand: 16 bf16
+SBO = 8 * ROW_BYTES  # stride byte offset: the next 8 rows
+LBO_SWIZZLED, LBO_INTERLEAVED = 16, 128
+LAYOUT_SW32, LAYOUT_INTERLEAVE = 3, 0
+# the widths a CTA may take (the N of its wgmma) and the accumulator chains
+# each is compiled with (FSE_K4_WIDTHS)
+WIDTHS = {8: 8, 16: 8, 24: 6, 40: 4, 48: 4, 56: 4, 72: 3, 112: 2, 144: 2, 216: 1}
+# column slices a case takes where more were faster than the whole N in one
+# instruction (scripts/sweep_k3_k4.py on an H100, PERF.md): the packed cases
+# with half or a third of the rows, whose whole N leaves SMs idle or streams
+# W; every other case takes its whole N
+NCOL = {(3072, 648, 108): 2, (3072, 648, 36): 2, (4608, 864, 144): 3, (3072, 1296, 216): 2,
+        (4608, 864, 72): 3, (3072, 1296, 108): 2}
 
 
 CASES = tuple(
@@ -53,44 +72,88 @@ CASES = tuple(
 
 
 class TilePlan(NamedTuple):
-    kp: int      # k padded to a multiple of 16
-    ntw: int     # 8-column mma tiles per CTA
-    ncol: int    # column slices (CTAs along N)
-    ctas: int    # CTAs in the grid
-    smem: int    # shared memory bytes a CTA takes
+    ks: int        # k-steps of 16 (k padded to kp = 16 ks)
+    nc: int        # columns a CTA: the N of every wgmma
+    ncol: int      # column slices (CTAs along N)
+    rows: int      # 64-row tiles (CTAs along M)
+    kc: int        # k-steps a chunk of the ring (all ks when resident)
+    stages: int    # chunks the ring holds (1 when resident)
+    resident: bool  # W is copied in once and stays
+    smem: int      # dynamic shared memory bytes a CTA takes
+
+    @property
+    def ctas(self) -> int:
+        return self.rows * self.ncol
+
+    @property
+    def kp(self) -> int:
+        return 16 * self.ks
 
 
-def _smem(kp: int, ntw: int) -> int:
-    """Shared memory of a CTA (csrc/lane_packing.cu's smem_bytes): the A tile
-    in bf16 with rows of kp + 8, and NTW column tiles of B fragments."""
-    return BM * (kp + 8) * 2 + (kp // 16) * ntw * 32 * 8
+def _smem(ks: int, nc: int, kc: int, stages: int) -> int:
+    """csrc/lane_packing.cu's smem_bytes: alignment slack, the A tile, the
+    ring (all ks k-steps of W when it holds them), a full and an empty
+    mbarrier a stage."""
+    return SLACK + ks * BM * ROW_BYTES + min(stages * kc, ks) * nc * ROW_BYTES + 16 * stages
+
+
+def plan_for(m: int, k: int, n: int, ncol: int = 1) -> TilePlan:
+    """The plan with ``ncol`` column slices: W resident where the slice fits
+    beside the A tile, else a ring of the most stages (4, 3, then 2) that
+    leaves chunks of at least 2 k-steps and one k-step a chain."""
+    ks = -(-k // 16)
+    per_slice = -(-n // ncol)
+    nc = -(-per_slice // 8) * 8
+    if nc not in WIDTHS or (ncol - 1) * nc >= n:
+        raise ValueError(f"no instantiation for {ncol} slices of n = {n} (width {nc})")
+    rows = -(-m // BM)
+    if _smem(ks, nc, ks, 1) <= SMEM_LIMIT:  # resident: one chunk of all ks k-steps
+        return TilePlan(ks, nc, ncol, rows, ks, 1, True, _smem(ks, nc, ks, 1))
+    room = SMEM_LIMIT - SLACK - ks * BM * ROW_BYTES
+    for stages in (4, 3, 2):
+        kc = (room - 16 * stages) // (stages * nc * ROW_BYTES)
+        if kc >= max(2, WIDTHS[nc]):  # a chunk feeds every accumulator chain
+            return TilePlan(ks, nc, ncol, rows, kc, stages, False, _smem(ks, nc, kc, stages))
+    raise ValueError(f"k = {k} leaves no room for a ring of width {nc}")
 
 
 def tile_plan(m: int, k: int, n: int) -> TilePlan:
-    """The column tiling for an (m, k) x (k, n) case: the fewest column
-    slices that give at least one CTA per SM and fit the CTA's A tile and
-    W slice in shared memory. The packed variants have half or a third of the
-    baseline's rows, so they get more slices instead of an idle card."""
-    kp = -(-k // 16) * 16
-    nt = -(-n // 8)
-    rows = -(-m // BM)
-    for ncol in range(max(1, -(-SMS // rows)), nt + 1):
-        ntw = -(-nt // ncol)
-        if ntw <= 9 and _smem(kp, ntw) <= SMEM_LIMIT:
-            return TilePlan(kp, ntw, ncol, rows * ncol, _smem(kp, ntw))
-    for ntw in range(min(nt, 9), 0, -1):  # fewer rows than SMs at one tile a slice
-        if _smem(kp, ntw) <= SMEM_LIMIT:
-            ncol = -(-nt // ntw)
-            return TilePlan(kp, ntw, ncol, rows * ncol, _smem(kp, ntw))
-    raise ValueError(f"k = {k} does not fit the kernel's shared memory")
+    """The kernel's plan for an (m, k) x (k, n) case: the whole N in one
+    instruction unless :data:`NCOL` says otherwise."""
+    return plan_for(m, k, n, NCOL.get((m, k, n), 1))
 
 
-def prepare_weight(w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
-    """(k, n) bf16 -> B fragments over (kp, ncol * ntw * 8), zero-padded, on
-    ``w``'s device."""
+def row_offset(r, h, swizzle: bool = True):
+    """Byte offset of row ``r``'s 16-byte half ``h`` (k 8 h .. 8 h + 7 of
+    the k-step) in a k-step block (csrc/lane_packing.cu's row_offset)."""
+    if swizzle:
+        return r * ROW_BYTES + ((h ^ ((r >> 2) & 1)) << 4)
+    return (r >> 3) * SBO + h * LBO_INTERLEAVED + (r & 7) * 16
+
+
+def descriptor(addr: int, swizzle: bool = True) -> int:
+    """The wgmma matrix descriptor of a K-major block at shared address
+    ``addr`` (csrc/lane_packing.cu's descriptor)."""
+    lbo, layout = (LBO_SWIZZLED, LAYOUT_SW32) if swizzle else (LBO_INTERLEAVED, LAYOUT_INTERLEAVE)
+    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((SBO >> 4) << 32) | (layout << 62)
+
+
+def prepare_weight(w: torch.Tensor, plan: TilePlan, swizzle: bool = True) -> torch.Tensor:
+    """(k, n) bf16 -> the kernel's shared-memory image of W, flat
+    [column slice][k-step][nc rows][16 k], each k-step block laid out by
+    :func:`row_offset`, zero-padded to kp rows and ncol * nc columns, in
+    ``w``'s dtype and on its device."""
     k, n = w.shape
-    cols = plan.ncol * plan.ntw * 8
-    return fragments(F.pad(w.float(), (0, cols - n, 0, plan.kp - k)))
+    wp = F.pad(w, (0, plan.ncol * plan.nc - n, 0, plan.kp - k))
+    # x[c, s, r, h, e] = wp[16 s + 8 h + e, c nc + r]
+    x = wp.reshape(plan.ks, 2, 8, plan.ncol, plan.nc).permute(3, 0, 4, 1, 2)
+    r = torch.arange(plan.nc, device=w.device)
+    if swizzle:  # half h of row r sits at position h ^ ((r >> 2) & 1)
+        flip = ((r >> 2) & 1).bool()[None, None, :, None, None]
+        return torch.where(flip, x.flip(3), x).contiguous().reshape(-1)
+    # core matrices: [r // 8][h][r % 8][8]
+    y = x.reshape(plan.ncol, plan.ks, plan.nc // 8, 8, 2, 8).permute(0, 1, 2, 4, 3, 5)
+    return y.contiguous().reshape(-1)
 
 
 _PREP: dict = {}
@@ -106,6 +169,25 @@ def _prepared(w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
         hit = (w, prepare_weight(w, plan))  # keeps w alive, so its id stays unique
         _PREP[key] = hit
     return hit[1]
+
+
+INFO_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads", "chains")
+
+
+def kernel_info(plan: TilePlan, device=0, lib=None) -> dict:
+    """The compiled instantiation of ``plan.nc``'s registers a thread, local
+    memory a thread (its spills), static shared memory, the dynamic shared
+    memory of ``plan``'s ring, threads a CTA and accumulator chains
+    (``fse_lane_packing_info``)."""
+    from .build import load_library
+
+    lib = load_library() if lib is None else lib
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    rc = lib.fse_lane_packing_info(out, plan.nc, plan.ks, plan.kc, plan.stages,
+                                   torch.device(device).index or 0)
+    if rc != 0:
+        raise RuntimeError(f"fse_lane_packing_info failed: CUDA error {rc}")
+    return dict(zip(INFO_KEYS, out))
 
 
 def lane_packing_mm_plain(a: torch.Tensor, w: torch.Tensor, grid: int,
@@ -133,9 +215,30 @@ def _check(a: torch.Tensor, w: torch.Tensor, grid: int, reps: int) -> None:
         raise ValueError(f"empty shape or count: {tuple(a.shape)} {tuple(w.shape)} {grid} {reps}")
 
 
-def lane_packing_mm(a: torch.Tensor, w: torch.Tensor, grid: int,
-                    reps: int = REPS) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch(a: torch.Tensor, image: torch.Tensor, n: int, plan: TilePlan, products: int,
+           lib=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel (and of its row-sum kernel) on ``a``'s
+    current stream with W's shared-memory ``image`` (:func:`prepare_weight`)
+    of n columns: ``(o, acc)``. ``lib`` is another build of the kernels (the
+    unswizzled one of ``-DFSE_K4_INTERLEAVE``); uncounted."""
+    from .build import load_library
+
+    m, k = a.shape
+    acc = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    o = torch.empty_like(a)
+    rc = (load_library() if lib is None else lib).fse_lane_packing(
+        a.data_ptr(), image.data_ptr(), acc.data_ptr(), o.data_ptr(), m, k, n, plan.ks,
+        plan.nc, plan.ncol, plan.kc, plan.stages, int(plan.resident), products,
+        a.device.index, torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lane_packing_mm kernel launch failed: CUDA error {rc}")
+    return o, acc
+
+
+def lane_packing_mm(a: torch.Tensor, w: torch.Tensor, grid: int, reps: int = REPS,
+                    plan: TilePlan = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4's wrapper: ``(o, acc)`` for ``a`` (m, k) fp32 and ``w`` (k, n) bf16.
+    ``plan`` overrides :func:`tile_plan` (a sweep of plans).
 
     A CUDA tensor launches the kernel on the current stream (the chain, then
     the row sums and ``o``; no synchronise, no allocation inside the kernel);
@@ -146,20 +249,8 @@ def lane_packing_mm(a: torch.Tensor, w: torch.Tensor, grid: int,
         return lane_packing_mm_plain(a, w, grid, reps)
     if a.device.type != "cuda":
         raise ValueError(f"lane_packing_mm runs on cuda or cpu, got {a.device}")
-    from .build import load_library
-
-    m, k = a.shape
-    n = w.shape[1]
-    plan = tile_plan(m, k, n)
-    wf = _prepared(w, plan)
-    acc = torch.empty(m, n, dtype=torch.float32, device=a.device)
-    o = torch.empty_like(a)
-    rc = load_library().fse_lane_packing(
-        a.data_ptr(), wf.data_ptr(), acc.data_ptr(), o.data_ptr(), m, k, plan.kp, n,
-        plan.ncol * plan.ntw, plan.ntw, reps * grid, a.device.index,
-        torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lane_packing_mm kernel launch failed: CUDA error {rc}")
+    plan = tile_plan(a.shape[0], a.shape[1], w.shape[1]) if plan is None else plan
+    o, acc = launch(a, _prepared(w, plan), w.shape[1], plan, reps * grid)
     lane_packing_mm.launches += 1
     return o, acc
 

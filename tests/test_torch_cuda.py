@@ -143,6 +143,31 @@ def test_k4_accumulator_matches_plain(cuda, m, k, n):
     assert torch.equal(o, o2) and torch.equal(acc, acc2)
 
 
+@pytest.mark.parametrize("case", k4.CASES, ids=[f"{c[0]}-{c[1]}" for c in k4.CASES])
+def test_k4_every_case_matches_plain(cuda, case):
+    """The bench's 12 cases at grid 2, each through its plan (resident or
+    streamed ring, its wgmma N)."""
+    _l, _v, m, k, n = case
+    rng = np.random.default_rng(k + n)
+    a = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(np.float32)).to(torch.bfloat16)
+    o, acc = k4.lane_packing_mm(a, w.to(cuda), 2)
+    po, pacc = k4.lane_packing_mm_plain(a, w.to(cuda), 2)
+    assert float((acc - pacc).abs().max()) <= 1e-3 * float(pacc.abs().max())
+    assert float((o - po).abs().max()) <= 1e-6
+
+
+def test_k4_instantiations_do_not_spill_and_follow_the_plan(cuda):
+    for nc in k4.WIDTHS:
+        info = k4.kernel_info(k4.TilePlan(1, nc, 1, 1, 1, 1, True, 0), cuda)
+        assert info["local_bytes"] == 0 and info["threads"] == k4.THREADS, (nc, info)
+        assert info["chains"] == k4.WIDTHS[nc]
+    for case in k4.CASES:
+        plan = k4.tile_plan(*case[2:])
+        info = k4.kernel_info(plan, cuda)
+        assert info["dynamic_smem"] == plan.smem <= k4.SMEM_LIMIT, (case, info)
+
+
 def test_heavyweight_runs_on_the_card_through_the_eager_forward(cuda):
     heavy = get_model("pix_shuffle", "heavyweight")
     params = heavy.init(torch.Generator().manual_seed(0), device="cpu")
@@ -246,6 +271,23 @@ def test_k3_matches_plain_byte_for_byte(cuda, n, mode):
         assert torch.equal(got, want), int((got != want).any(-1).sum())
         cpu = k3.palette_dither_plain(imgs.cpu(), pals.cpu(), method, bayer)
         assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("mode", range(len(K3_MODES)))
+def test_k3_several_pixels_a_thread_on_a_ragged_crop(cuda, mode):
+    """A crop whose pixel count divides by neither the CTA's threads, nor
+    the pixels a thread, nor the pixels a CTA: the masked tail is right."""
+    info = k3.kernel_info(cuda)
+    assert info["pixels_per_thread"] > 1 and info["local_bytes"] == 0
+    block, pix = info["threads"], info["pixels_per_thread"]
+    h, w = 31, 41  # 1271 pixels
+    assert (h * w) % block and (h * w) % pix and (h * w) % (block * pix)
+    method, bayer = K3_MODES[mode]
+    imgs, pals = _k3_inputs(2, h, w, 37, seed=40 + mode)
+    imgs, pals = imgs.to(cuda), pals.to(cuda)
+    got = k3.palette_dither(imgs, pals, method, bayer)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k3.palette_dither_plain(imgs, pals, method, bayer))
 
 
 def test_k3_refuses_what_the_kernel_does_not_take(cuda):

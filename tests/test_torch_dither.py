@@ -174,6 +174,61 @@ def test_cpu_tensor_never_touches_the_library(monkeypatch):
     assert k3.palette_dither.launches == before
 
 
+INT32 = (-(2 ** 31), 2 ** 31 - 1)
+
+
+def _key_search(x, pal):
+    """The kernel's integer-key search in numpy int64 (csrc/dither.cu): key
+    1024 (|p_j|^2 - 2 x.p_j) + j; k1 = min(k1, key), k2 = min(k2, max(k1,
+    key)) over j in order; i = key & 1023, d1 = |x|^2 + (k1 >> 10). Returns
+    (i1, i2, d1) and the keys' (min, max)."""
+    x = x.astype(np.int64)  # (P, 3)
+    pal = pal.astype(np.int64)  # (N, 3)
+    big = np.iinfo(np.int32).max
+    k1 = np.full(len(x), big, np.int64)
+    k2 = k1.copy()
+    lo, hi = big, -big
+    for j, p in enumerate(pal):
+        key = (1024 * int(p @ p) + j) - ((x @ p) << 11)
+        lo, hi = min(lo, int(key.min())), max(hi, int(key.max()))
+        k2 = np.minimum(k2, np.maximum(k1, key))
+        k1 = np.minimum(k1, key)
+    d1 = (x * x).sum(1) + (k1 >> 10)
+    return (k1 & 1023, k2 & 1023, d1), (lo, hi)
+
+
+@pytest.mark.parametrize("n", [2, 3, 1024])
+def test_integer_key_search_is_the_plain_search(n):
+    """On seeded pixels and palettes with duplicate colours and pixels that
+    sit on a colour, the key search gives the plain version's (i1, i2, d1):
+    the nearest, the nearest other index (ties to the lowest index, the
+    Pallas kernel's strict '<'), and the nearest distance."""
+    rng = np.random.default_rng(n)
+    pal = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+    pal[n // 2] = pal[0]  # a duplicate colour (for n = 2, the same colour twice)
+    pal[-1] = pal[1 % n]
+    x = np.concatenate([rng.integers(0, 256, (600, 3)), pal[:, :], pal[:1] // 2,
+                        np.array([[0, 0, 0], [255, 255, 255]])]).astype(np.uint8)
+    (i1, i2, d1), (lo, hi) = _key_search(x, pal)
+    w1, wd1, w2 = k3.nearest_two(torch.from_numpy(x)[None].float(), torch.from_numpy(pal)[None])
+    assert np.array_equal(i1, w1[0].numpy()) and np.array_equal(i2, w2[0].numpy())
+    assert np.array_equal(d1, wd1[0].numpy().astype(np.int64))
+    assert INT32[0] <= lo and hi <= INT32[1]
+    assert (d1 == 0).sum() >= n  # every colour's own pixel
+
+
+def test_integer_keys_stay_within_int32_at_both_extremes():
+    """The smallest key (x = p = 255) and the largest (x = 0, p = 255,
+    j = 1023) are int32, and so is the kernel's 2048 x.p term."""
+    (_, _, d1), (lo, _) = _key_search(np.full((1, 3), 255), np.full((2, 3), 255))
+    assert lo == 1024 * (3 * 255 ** 2 - 2 * 3 * 255 ** 2) and d1[0] == 0
+    pal = np.zeros((1024, 3), np.int64)
+    pal[1023] = 255
+    _, (_, hi) = _key_search(np.zeros((1, 3)), pal)
+    assert hi == 1024 * 3 * 255 ** 2 + 1023
+    assert INT32[0] <= lo and hi <= INT32[1] and (3 * 255 ** 2) << 11 <= INT32[1]
+
+
 def test_kernel_ops_count():
     imgs = torch.zeros(16, 144, 188, 3, dtype=torch.uint8)
     pals = torch.zeros(16, 256, 3, dtype=torch.uint8)

@@ -77,10 +77,18 @@ def test_k4_parity_and_timing_phases_on_the_cpu(monkeypatch):
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
+    def device_ms(fn, n=50, reps=3, preroll_ms=30.0):  # a sleep kernel needs a card
+        return {"ms": median_ms(fn), "host_behind": False}
+
     monkeypatch.setattr(cs, "median_ms", median_ms)
+    monkeypatch.setattr(cs, "device_ms", device_ms)
     rows = cs.k4_timing(CPU, grid=1, cases=SMALL)
     assert [r["bound_by"] for r in rows] == ["bytes", "bytes"]  # tiny m: the bytes bind
     assert all(r["acc_max_abs"] == 0.0 and r["ctas"] >= 1 for r in rows)
+    assert [r["n_per_instruction"] for r in rows] == [40, 216]
+    assert [r["ring"] for r in rows] == ["resident", "streamed"]
+    # cuBLAS's time for the 8 products a grid step: one matmul's, times 8
+    assert all(r["library_ms"] > 0 and r["chain_ms"] > 0 for r in rows)
     o, acc = cs.library_lane_chain(*cs.k4_inputs(__import__("numpy").random.default_rng(0),
                                                  8, 16, 8, CPU), 1)
     assert o.shape == (8, 16) and acc.shape == (8, 8)

@@ -11,6 +11,7 @@ another order), ``o`` within 1e-6 abs (the same fp32 operations).
 """
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -85,28 +86,108 @@ def test_the_twelve_cases_are_the_jax_scripts(monkeypatch):
     assert len(k4.CASES) == 12
 
 
-@pytest.mark.parametrize("case", k4.CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+CASE_IDS = [f"{c[0]}-{c[1]}" for c in k4.CASES]
+
+
+@pytest.mark.parametrize("case", k4.CASES, ids=CASE_IDS)
 def test_tile_plan_fills_the_card_and_fits(case):
+    """One wgmma N a CTA, a multiple of 8 and at most 256, compiled in; the
+    CTAs cover every row and column once; shared memory within a block's
+    227 KB; the card filled as far as the 64-row tiles and the plan's
+    column slices allow."""
     _l, _v, m, k, n = case
     plan = k4.tile_plan(m, k, n)
-    assert plan.ctas >= k4.SMS, "every variant has at least one CTA per SM"
-    assert plan.smem <= k4.SMEM_LIMIT and 1 <= plan.ntw <= 9
-    assert plan.ncol * plan.ntw * 8 >= n and plan.kp % 16 == 0 and plan.kp >= k
-    assert (plan.ncol - 1) * plan.ntw * 8 < n  # no column slice is all padding
+    assert plan.nc % 8 == 0 and 8 <= plan.nc <= 256 and plan.nc in k4.WIDTHS
+    assert plan.smem <= k4.SMEM_LIMIT
+    assert (plan.rows - 1) * k4.BM < m <= plan.rows * k4.BM
+    assert (plan.ncol - 1) * plan.nc < n <= plan.ncol * plan.nc
+    assert plan.ctas == plan.rows * plan.ncol >= min(k4.SMS, plan.rows)
+    assert plan.kp >= k > plan.kp - 16
+    assert 1 <= plan.kc <= plan.ks
+    if plan.resident:  # all of W, once
+        assert (plan.kc, plan.stages) == (plan.ks, 1)
+    else:
+        assert plan.stages * plan.kc < plan.ks and plan.kc >= k4.WIDTHS[plan.nc]
+        # a larger ring would not fit
+        assert k4._smem(plan.ks, plan.nc, plan.kc + 1, plan.stages) > k4.SMEM_LIMIT
 
 
-def test_prepared_weight_is_the_padded_b_fragment_matrix():
-    """The kernel's W: B fragments [kstep][ntile][lane][4] of w, zero-padded
-    to kp rows and ncol * ntw * 8 columns."""
-    _, w = _data(8, 40, 20)
-    wt = torch.from_numpy(w.astype(np.float32)).to(torch.bfloat16)
-    plan = k4.TilePlan(kp=48, ntw=2, ncol=2, ctas=0, smem=0)
-    f = k4.prepare_weight(wt, plan)
-    g = f.float().reshape(3, 4, 8, 4, 2, 2)  # kstep, ntile, col g, t, khalf, pair
-    got = g.permute(0, 4, 3, 5, 1, 2).reshape(48, 32)
-    want = torch.zeros(48, 32)
-    want[:40, :20] = wt.float()
-    assert torch.equal(got, want)
+def test_the_four_that_do_not_fit_stream():
+    """W beside the A tile fits resident at the whole N in 8 cases; l4
+    packed-2 and packed-3 and l5 packed-2 and packed-3 stream it."""
+    whole = {(c[0], c[1]): k4.plan_for(*c[2:]) for c in k4.CASES}
+    streamed = sorted(key for key, p in whole.items() if not p.resident)
+    assert streamed == [("l4-class", "packed-2"), ("l4-class", "packed-3"),
+                        ("l5-class", "packed-2"), ("l5-class", "packed-3")]
+    assert [p.nc for p in whole.values()] == [40, 72, 112, 72, 144, 216, 16, 24, 40, 40, 72,
+                                              112]
+
+
+def _hardware_address(r, kk, swizzle):
+    """Where wgmma reads element (row r, k kk of the k-step) of a K-major
+    block at an aligned start, from the descriptor's fields: 8-row groups
+    SBO apart; with the 32-byte swizzle rows of 32 bytes and address bit 4
+    flipped by bit 7, else core matrices of 8 rows x 16 bytes with the two
+    K halves LBO apart."""
+    d = k4.descriptor(0, swizzle)
+    lbo, sbo, layout = ((d >> 16) & 0x3FFF) << 4, ((d >> 32) & 0x3FFF) << 4, d >> 62
+    if layout == k4.LAYOUT_SW32:
+        assert sbo == 8 * 32
+        addr = (r // 8) * sbo + (r % 8) * 32 + kk * 2
+        return addr ^ (((addr >> 7) & 1) << 4)
+    assert layout == k4.LAYOUT_INTERLEAVE
+    return (r // 8) * sbo + (kk // 8) * lbo + (r % 8) * 16 + (kk % 8) * 2
+
+
+@pytest.mark.parametrize("swizzle", [True, False])
+@pytest.mark.parametrize("case", k4.CASES, ids=CASE_IDS)
+def test_prepared_weight_is_the_padded_b_fragment_matrix(case, swizzle):
+    """The kernel's W image: each element of W, zero-padded to kp rows and
+    ncol * nc columns, exactly once, at the address the descriptor's
+    core-matrix layout and swizzle give within its k-step block
+    ([column slice][k-step] blocks of nc rows x 32 bytes)."""
+    _l, _v, m, k, n = case
+    plan = k4.tile_plan(m, k, n)
+    idx = torch.arange(1, k * n + 1, dtype=torch.int64).reshape(k, n)
+    img = k4.prepare_weight(idx, plan, swizzle=swizzle).numpy()
+    assert img.size == plan.kp * plan.ncol * plan.nc
+    kk, nn = np.meshgrid(np.arange(plan.kp), np.arange(plan.ncol * plan.nc), indexing="ij")
+    c, r, s = nn // plan.nc, nn % plan.nc, kk // 16
+    block = (c * plan.ks + s) * plan.nc * 32
+    addr = block + _hardware_address(r, kk % 16, swizzle)
+    assert addr.min() >= 0 and np.all(addr % 2 == 0)
+    assert np.array_equal(np.sort(addr.ravel()), np.arange(0, 2 * img.size, 2))
+    want = np.zeros((plan.kp, plan.ncol * plan.nc), np.int64)
+    want[:k, :n] = idx.numpy()
+    assert np.array_equal(img[addr // 2], want)
+    # the kernel's own offset formula is the same map
+    assert np.array_equal(addr - block, k4.row_offset(r, (kk % 16) // 8, swizzle) + (kk % 8) * 2)
+
+
+def test_descriptor_fields():
+    """Start address in 16-byte units in bits 0-13, LBO in 16-29, SBO in
+    32-45, layout type in 62-63 (3: 32-byte swizzle, 0: none)."""
+    d = k4.descriptor(0x1A300)
+    assert d & 0x3FFF == 0x1A30 and (d >> 16) & 0x3FFF == 1 and (d >> 32) & 0x3FFF == 16
+    assert d >> 62 == 3 and (d >> 46) & 0xFFFF == 0
+    d = k4.descriptor(0x100, swizzle=False)
+    assert d & 0x3FFF == 0x10 and (d >> 16) & 0x3FFF == 8 and d >> 62 == 0
+    # advancing a descriptor advances its start address in 16-byte units
+    assert k4.descriptor(0x1A300 + 2048) == k4.descriptor(0x1A300) + 2048 // 16
+
+
+def test_wgmma_header_is_the_generators():
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import gen_wgmma
+
+    with open(gen_wgmma.HEADER) as f:
+        assert f.read() == gen_wgmma.render()
+    assert set(k4.WIDTHS) <= set(gen_wgmma.WIDTHS)
+    cu = open(os.path.join(os.path.dirname(gen_wgmma.HEADER), "lane_packing.cu")).read()
+    macro = re.search(r"#define FSE_K4_WIDTHS\(X\)((?:[^\n]*\\\n)*[^\n]*)", cu).group(1)
+    assert dict(map(int, x) for x in re.findall(r"X\((\d+), (\d+)\)", macro)) == k4.WIDTHS
+    assert "mma.sync" not in cu
+    # chains x N / 2 accumulator registers a thread stay well under 255
+    assert all(c * w // 2 <= 144 for w, c in k4.WIDTHS.items())
 
 
 def test_wrapper_checks_its_input():
