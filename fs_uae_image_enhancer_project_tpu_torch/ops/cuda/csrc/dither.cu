@@ -34,9 +34,9 @@
 // MAP, 5 for the others (ptxas fuses pairs of mins into a 3-way VIMNMX3;
 // the compiled loop, with its share of the load and the loop's own
 // instructions, is 3.5 and 5.5 a pair: scripts/sass_k3.py). Each thread
-// takes FSE_K3_PIX pixels (strided by the block), so one broadcast load of a
+// takes PIX pixels (strided by the block), so one broadcast load of a
 // palette entry serves all of them; 3 at 128 threads a CTA was the fastest
-// of 1-4 pixels and 64-256 threads on an H100 (scripts/sweep_k3_k4.py). Then
+// of 1-4 pixels and 64-256 threads on an H100 (PERF.md, section 6). Then
 // i = k1 & 1023 and d1 = |x|^2 + (k1 >> 10), exact, for the d1 == 0 rule.
 // One CTA row per crop (blockIdx.y); the ragged last CTA of a crop masks its
 // own tail.
@@ -63,14 +63,8 @@
 
 namespace {
 
-#ifndef FSE_K3_BLOCK
-#define FSE_K3_BLOCK 128
-#endif
-#ifndef FSE_K3_PIX
-#define FSE_K3_PIX 3
-#endif
-constexpr int BLOCK = FSE_K3_BLOCK;  // threads a CTA
-constexpr int PIX = FSE_K3_PIX;      // pixels a thread
+constexpr int BLOCK = 128;  // threads a CTA
+constexpr int PIX = 3;      // pixels a thread
 constexpr int MAX_COLORS = 1024;
 constexpr int MODE_MAP = 0, MODE_CHECKER = 1, MODE_ORDERED = 2;
 

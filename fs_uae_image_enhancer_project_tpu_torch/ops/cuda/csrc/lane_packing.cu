@@ -48,9 +48,7 @@
 // offset 16 (unused with a swizzle), stride byte offset 256 (the next 8
 // rows), layout type 3 (32-byte swizzle). W's image in device memory is
 // these bytes already (prepare_weight), [column slice][k-step][NC rows][16],
-// so a chunk is one contiguous bulk copy. A build with -DFSE_K4_INTERLEAVE
-// takes the unswizzled core-matrix layout instead (prepare_weight's
-// swizzle=False), to check one against the other.
+// so a chunk is one contiguous bulk copy.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes. The launches
 // go on the caller's stream, never synchronise and allocate nothing.
@@ -70,22 +68,12 @@ constexpr int SLACK = 256;              // to align the dynamic shared memory
 constexpr int KSTEP_ROW_BYTES = 32;     // 16 bf16 of K
 constexpr int A_KSTEP_BYTES = BM * KSTEP_ROW_BYTES;
 constexpr int SBO_BYTES = 8 * KSTEP_ROW_BYTES;  // the next 8 rows
-#ifdef FSE_K4_INTERLEAVE
-// the unswizzled layout, for checking the swizzled one against: core matrices
-// (8 rows x 16 bytes) at (r / 8) * 256 + h * 128
-constexpr int LBO_BYTES = 128;
-constexpr uint64_t LAYOUT_TYPE = 0;
-__host__ __device__ inline int row_offset(int r, int h) {
-  return (r >> 3) * SBO_BYTES + h * LBO_BYTES + (r & 7) * 16;
-}
-#else
 constexpr int LBO_BYTES = 16;  // unused with a swizzle
 constexpr uint64_t LAYOUT_TYPE = 3;  // 32-byte swizzle
 // byte offset of row r's 16-byte half h in a k-step block
 __host__ __device__ inline int row_offset(int r, int h) {
   return r * KSTEP_ROW_BYTES + ((h ^ ((r >> 2) & 1)) << 4);
 }
-#endif
 
 // k-steps of W the ring holds: all ks when resident (one chunk of ks)
 __host__ __device__ inline int ring_ksteps(int ks, int kc, int stages) {
@@ -357,12 +345,6 @@ struct Args {
   int m, k, n, ks, ncol, kc, stages, resident, reps;
 };
 
-#ifdef FSE_K4_ONE_CHAIN
-#define FSE_K4_C(C) 1  // one accumulator chain at every width, to time against
-#else
-#define FSE_K4_C(C) C
-#endif
-
 template <int NC, int C>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
   const int bytes = smem_bytes(p.ks, NC, p.kc, p.stages);
@@ -412,9 +394,9 @@ int fse_lane_packing(const void* a, const void* w, void* acc, void* o, int m, in
                   kc, stages, resident, reps};
   cudaStream_t s = (cudaStream_t)stream;
   switch (nc) {
-#define FSE_CASE(W, C) \
-  case W:              \
-    err = launch<W, FSE_K4_C(C)>(p, s); \
+#define FSE_CASE(W, C)        \
+  case W:                     \
+    err = launch<W, C>(p, s); \
     break;
     FSE_K4_WIDTHS(FSE_CASE)
 #undef FSE_CASE
@@ -434,9 +416,9 @@ int fse_lane_packing_info(int* out, int nc, int ks, int kc, int stages, int devi
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   switch (nc) {
-#define FSE_CASE(W, C) \
-  case W:              \
-    err = info<W, FSE_K4_C(C)>(out, ks, kc, stages); \
+#define FSE_CASE(W, C)                     \
+  case W:                                  \
+    err = info<W, C>(out, ks, kc, stages); \
     break;
     FSE_K4_WIDTHS(FSE_CASE)
 #undef FSE_CASE

@@ -170,29 +170,6 @@ def palette_dither_plain(images: torch.Tensor, palettes: torch.Tensor, method: s
     return out.reshape(b, h, w, 3)
 
 
-def launch(images: torch.Tensor, palettes: torch.Tensor, mode: int, bayer, lum: torch.Tensor,
-           lib=None) -> torch.Tensor:
-    """One launch of the kernel on the images' current stream, inputs already
-    checked; ``lib`` is another build of the kernels (a sweep of its
-    pixels a thread); uncounted."""
-    from .build import load_library
-
-    b, h, w, _ = images.shape
-    if mode == MODE_ORDERED:
-        bay = np.ascontiguousarray(np.asarray(bayer), dtype=np.int32)
-        bay_m, bay_ptr = bay.shape[0], bay.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
-    else:
-        bay_m, bay_ptr = 0, None
-    out = torch.empty_like(images)
-    rc = (load_library() if lib is None else lib).fse_palette_dither(
-        images.data_ptr(), palettes.data_ptr(), lum.data_ptr(), out.data_ptr(),
-        b, h, w, palettes.shape[1], mode, bay_m, bay_ptr, images.device.index,
-        torch.cuda.current_stream(images.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"palette_dither kernel launch failed: CUDA error {rc}")
-    return out
-
-
 def palette_dither(images: torch.Tensor, palettes: torch.Tensor, method: str = "none",
                    bayer=None, pal_lum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3's wrapper: (B, H, W, 3) uint8 crops, (B, N, 3) uint8 palettes ->
@@ -214,7 +191,22 @@ def palette_dither(images: torch.Tensor, palettes: torch.Tensor, method: str = "
     if not images.is_contiguous() or not palettes.is_contiguous():
         raise ValueError("palette_dither takes contiguous images and palettes")
     lum = palette_luminance(palettes) if pal_lum is None else pal_lum.contiguous()
-    out = launch(images, palettes, mode, bayer, lum)
+    b, h, w, _ = images.shape
+    if mode == MODE_ORDERED:
+        bay = np.ascontiguousarray(np.asarray(bayer), dtype=np.int32)
+        bay_m, bay_ptr = bay.shape[0], bay.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    else:
+        bay_m, bay_ptr = 0, None
+    from .build import load_library
+
+    lib = load_library()
+    out = torch.empty_like(images)
+    rc = lib.fse_palette_dither(
+        images.data_ptr(), palettes.data_ptr(), lum.data_ptr(), out.data_ptr(),
+        b, h, w, palettes.shape[1], mode, bay_m, bay_ptr, images.device.index,
+        torch.cuda.current_stream(images.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"palette_dither kernel launch failed: CUDA error {rc}")
     palette_dither.launches += 1
     return out
 
@@ -225,15 +217,14 @@ INFO_KEYS = ("registers_map", "registers_checker", "registers_ordered", "local_b
              "static_smem", "threads", "pixels_per_thread")
 
 
-def kernel_info(device=0, lib=None) -> dict:
+def kernel_info(device=0) -> dict:
     """The compiled kernel's registers a thread (per mode), local memory a
     thread (its spills), static shared memory, threads a CTA and pixels a
     thread (``fse_palette_dither_info``)."""
     from .build import load_library
 
-    lib = load_library() if lib is None else lib
     out = (ctypes.c_int * len(INFO_KEYS))()
-    rc = lib.fse_palette_dither_info(out, torch.device(device).index or 0)
+    rc = load_library().fse_palette_dither_info(out, torch.device(device).index or 0)
     if rc != 0:
         raise RuntimeError(f"fse_palette_dither_info failed: CUDA error {rc}")
     return dict(zip(INFO_KEYS, out))

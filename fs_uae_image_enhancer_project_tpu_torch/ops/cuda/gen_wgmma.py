@@ -4,7 +4,8 @@ shared-memory descriptor, into N / 2 fp32 registers a thread, adding to them
 or (scale_d = 0) overwriting them.
 
 An inline asm statement names every output register, so each N needs its own
-operand list; this script writes them out for N = 8, 16, ..., 256.
+operand list; this script writes them out for the widths K4 is compiled at
+(``lane_packing.WIDTHS``).
 
     python -m fs_uae_image_enhancer_project_tpu_torch.ops.cuda.gen_wgmma
 
@@ -15,8 +16,10 @@ from __future__ import annotations
 
 import os
 
+from .lane_packing import WIDTHS as K4_WIDTHS
+
 HEADER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "wgmma_ops.cuh")
-WIDTHS = tuple(range(8, 257, 8))
+WIDTHS = tuple(sorted(K4_WIDTHS))
 
 
 def function(n: int) -> str:

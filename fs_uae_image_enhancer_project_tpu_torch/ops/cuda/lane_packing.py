@@ -49,15 +49,20 @@ THREADS = 160  # one consumer warpgroup and a producer warp
 SLACK = 256  # alignment of the dynamic shared memory
 ROW_BYTES = 32  # a k-step of one row of an operand: 16 bf16
 SBO = 8 * ROW_BYTES  # stride byte offset: the next 8 rows
-LBO_SWIZZLED, LBO_INTERLEAVED = 16, 128
-LAYOUT_SW32, LAYOUT_INTERLEAVE = 3, 0
+LBO = 16  # leading byte offset, unused with a swizzle
+LAYOUT_SW32 = 3  # the descriptor's layout type: 32-byte swizzle
 # the widths a CTA may take (the N of its wgmma) and the accumulator chains
 # each is compiled with (FSE_K4_WIDTHS)
 WIDTHS = {8: 8, 16: 8, 24: 6, 40: 4, 48: 4, 56: 4, 72: 3, 112: 2, 144: 2, 216: 1}
 # column slices a case takes where more were faster than the whole N in one
-# instruction (scripts/sweep_k3_k4.py on an H100, PERF.md): the packed cases
+# instruction (scripts/sweep_k4.py on an H100, PERF.md): the packed cases
 # with half or a third of the rows, whose whole N leaves SMs idle or streams
-# W; every other case takes its whole N
+# W; every other case takes its whole N. A table, not a rule: no rule of
+# filling the card, keeping W resident or keeping N wide picks these. l5
+# packed-2 is fastest split 3 ways (N 24, 216 CTAs) though split 2 (N 40,
+# 144 CTAs) fills the card with W resident; l2/l6 packed-3 split 2 (96 CTAs)
+# beats split 3 (144 CTAs) by 1.8x; l2/l6 and l7 packed-2 keep the whole N
+# on 72 CTAs.
 NCOL = {(3072, 648, 108): 2, (3072, 648, 36): 2, (4608, 864, 144): 3, (3072, 1296, 216): 2,
         (4608, 864, 72): 3, (3072, 1296, 108): 2}
 
@@ -123,22 +128,19 @@ def tile_plan(m: int, k: int, n: int) -> TilePlan:
     return plan_for(m, k, n, NCOL.get((m, k, n), 1))
 
 
-def row_offset(r, h, swizzle: bool = True):
+def row_offset(r, h):
     """Byte offset of row ``r``'s 16-byte half ``h`` (k 8 h .. 8 h + 7 of
     the k-step) in a k-step block (csrc/lane_packing.cu's row_offset)."""
-    if swizzle:
-        return r * ROW_BYTES + ((h ^ ((r >> 2) & 1)) << 4)
-    return (r >> 3) * SBO + h * LBO_INTERLEAVED + (r & 7) * 16
+    return r * ROW_BYTES + ((h ^ ((r >> 2) & 1)) << 4)
 
 
-def descriptor(addr: int, swizzle: bool = True) -> int:
+def descriptor(addr: int) -> int:
     """The wgmma matrix descriptor of a K-major block at shared address
     ``addr`` (csrc/lane_packing.cu's descriptor)."""
-    lbo, layout = (LBO_SWIZZLED, LAYOUT_SW32) if swizzle else (LBO_INTERLEAVED, LAYOUT_INTERLEAVE)
-    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((SBO >> 4) << 32) | (layout << 62)
+    return ((addr & 0x3FFFF) >> 4) | ((LBO >> 4) << 16) | ((SBO >> 4) << 32) | (LAYOUT_SW32 << 62)
 
 
-def prepare_weight(w: torch.Tensor, plan: TilePlan, swizzle: bool = True) -> torch.Tensor:
+def prepare_weight(w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """(k, n) bf16 -> the kernel's shared-memory image of W, flat
     [column slice][k-step][nc rows][16 k], each k-step block laid out by
     :func:`row_offset`, zero-padded to kp rows and ncol * nc columns, in
@@ -148,12 +150,9 @@ def prepare_weight(w: torch.Tensor, plan: TilePlan, swizzle: bool = True) -> tor
     # x[c, s, r, h, e] = wp[16 s + 8 h + e, c nc + r]
     x = wp.reshape(plan.ks, 2, 8, plan.ncol, plan.nc).permute(3, 0, 4, 1, 2)
     r = torch.arange(plan.nc, device=w.device)
-    if swizzle:  # half h of row r sits at position h ^ ((r >> 2) & 1)
-        flip = ((r >> 2) & 1).bool()[None, None, :, None, None]
-        return torch.where(flip, x.flip(3), x).contiguous().reshape(-1)
-    # core matrices: [r // 8][h][r % 8][8]
-    y = x.reshape(plan.ncol, plan.ks, plan.nc // 8, 8, 2, 8).permute(0, 1, 2, 4, 3, 5)
-    return y.contiguous().reshape(-1)
+    # half h of row r sits at position h ^ ((r >> 2) & 1)
+    flip = ((r >> 2) & 1).bool()[None, None, :, None, None]
+    return torch.where(flip, x.flip(3), x).contiguous().reshape(-1)
 
 
 _PREP: dict = {}
@@ -174,16 +173,15 @@ def _prepared(w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
 INFO_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads", "chains")
 
 
-def kernel_info(plan: TilePlan, device=0, lib=None) -> dict:
+def kernel_info(plan: TilePlan, device=0) -> dict:
     """The compiled instantiation of ``plan.nc``'s registers a thread, local
     memory a thread (its spills), static shared memory, the dynamic shared
     memory of ``plan``'s ring, threads a CTA and accumulator chains
     (``fse_lane_packing_info``)."""
     from .build import load_library
 
-    lib = load_library() if lib is None else lib
     out = (ctypes.c_int * len(INFO_KEYS))()
-    rc = lib.fse_lane_packing_info(out, plan.nc, plan.ks, plan.kc, plan.stages,
+    rc = load_library().fse_lane_packing_info(out, plan.nc, plan.ks, plan.kc, plan.stages,
                                    torch.device(device).index or 0)
     if rc != 0:
         raise RuntimeError(f"fse_lane_packing_info failed: CUDA error {rc}")
@@ -215,18 +213,18 @@ def _check(a: torch.Tensor, w: torch.Tensor, grid: int, reps: int) -> None:
         raise ValueError(f"empty shape or count: {tuple(a.shape)} {tuple(w.shape)} {grid} {reps}")
 
 
-def launch(a: torch.Tensor, image: torch.Tensor, n: int, plan: TilePlan, products: int,
-           lib=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch(a: torch.Tensor, image: torch.Tensor, n: int, plan: TilePlan,
+           products: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel (and of its row-sum kernel) on ``a``'s
     current stream with W's shared-memory ``image`` (:func:`prepare_weight`)
-    of n columns: ``(o, acc)``. ``lib`` is another build of the kernels (the
-    unswizzled one of ``-DFSE_K4_INTERLEAVE``); uncounted."""
+    of n columns, laid out for ``plan``: ``(o, acc)``; uncounted (a sweep of
+    plans calls it)."""
     from .build import load_library
 
     m, k = a.shape
     acc = torch.empty(m, n, dtype=torch.float32, device=a.device)
     o = torch.empty_like(a)
-    rc = (load_library() if lib is None else lib).fse_lane_packing(
+    rc = load_library().fse_lane_packing(
         a.data_ptr(), image.data_ptr(), acc.data_ptr(), o.data_ptr(), m, k, n, plan.ks,
         plan.nc, plan.ncol, plan.kc, plan.stages, int(plan.resident), products,
         a.device.index, torch.cuda.current_stream(a.device).cuda_stream)
@@ -235,10 +233,10 @@ def launch(a: torch.Tensor, image: torch.Tensor, n: int, plan: TilePlan, product
     return o, acc
 
 
-def lane_packing_mm(a: torch.Tensor, w: torch.Tensor, grid: int, reps: int = REPS,
-                    plan: TilePlan = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4's wrapper: ``(o, acc)`` for ``a`` (m, k) fp32 and ``w`` (k, n) bf16.
-    ``plan`` overrides :func:`tile_plan` (a sweep of plans).
+def lane_packing_mm(a: torch.Tensor, w: torch.Tensor, grid: int,
+                    reps: int = REPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's wrapper: ``(o, acc)`` for ``a`` (m, k) fp32 and ``w`` (k, n) bf16,
+    with :func:`tile_plan`'s plan.
 
     A CUDA tensor launches the kernel on the current stream (the chain, then
     the row sums and ``o``; no synchronise, no allocation inside the kernel);
@@ -249,7 +247,7 @@ def lane_packing_mm(a: torch.Tensor, w: torch.Tensor, grid: int, reps: int = REP
         return lane_packing_mm_plain(a, w, grid, reps)
     if a.device.type != "cuda":
         raise ValueError(f"lane_packing_mm runs on cuda or cpu, got {a.device}")
-    plan = tile_plan(a.shape[0], a.shape[1], w.shape[1]) if plan is None else plan
+    plan = tile_plan(a.shape[0], a.shape[1], w.shape[1])
     o, acc = launch(a, _prepared(w, plan), w.shape[1], plan, reps * grid)
     lane_packing_mm.launches += 1
     return o, acc

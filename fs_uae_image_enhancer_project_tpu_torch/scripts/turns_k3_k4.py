@@ -1,7 +1,6 @@
-"""Time K3 and K4 against another tree's K3 and K4 on one card, in turns.
-
-    python fs_uae_image_enhancer_project_tpu_torch/scripts/turns_k3_k4.py \\
-        --parent DIR [--out FILE]
+"""Time K3 and K4 against another tree's K3 and K4 on one card, in turns:
+the ``turns`` phase of ``chip_smoke.py --parent DIR``, which calls
+:func:`main`.
 
 ``DIR`` is another checkout of the repo (a parent commit unpacked with ``git
 archive`` into ``build/``, which is gitignored). Each tree is timed in a child
@@ -12,17 +11,16 @@ tree, this tree, parent. Every child times the same work:
 - K4 (``lane_packing_mm``) at the bench's 12 cases at grid 64, data as the
   bench makes it (``default_rng(0)``: a ~ N(0, 1) fp32, w ~ N(0, 0.05) bf16):
   the median of 20 single calls between CUDA events, after 3 warm-ups;
-- K3 (``palette_dither``, palette luminance given) on the inputs in
-  ``--inputs`` (an ``.npz`` of crops and palettes; by default 16 seeded
-  188x144 lores crops and seeded palettes of 64 and 256 colours) in every
+- K3 (``palette_dither``, palette luminance given) on the inputs in an
+  ``.npz`` of ``crops``, ``pal64`` and ``pal256`` (``chip_smoke.py`` writes
+  the datagen phase's lores crops and their k-means palettes) in every
   mode: the device time of one call, 3 repeats of 50 calls back to back
   behind a sleep kernel (``utils.profiler.device_times``'s method), median.
 
 Each child also checks its kernels' outputs against its own tree's plain
-versions (K4's accumulator within 1e-3 of max|acc|, K3 byte for byte). One JSON object with
-every visit, and a summary by kernel and case: the parent's and this tree's
-medians over their two visits. Needs a card. ``main(parent=..., inputs=...)``
-is what ``chip_smoke.py --parent DIR`` calls.
+versions (K4's accumulator within 1e-3 of max|acc|, K3 byte for byte).
+:func:`main` returns every visit and a summary by kernel and case: the
+parent's and this tree's readings, two visits each. Needs a card.
 """
 from __future__ import annotations
 
@@ -47,18 +45,6 @@ def _modes():
     return [("map", "none", None), ("checker", "checkerboard", None),
             ("bayer2x2", "ordered", BAYER_MATRIX_2X2), ("bayer4x4", "ordered", BAYER_MATRIX_4X4),
             ("bayer8x8", "ordered", BAYER_MATRIX_8X8)]
-
-
-def default_inputs(path: str) -> str:
-    """16 seeded 188x144 crops and seeded palettes of 64 and 256 colours."""
-    import numpy as np
-
-    rng = np.random.default_rng(7)
-    crops = rng.integers(0, 256, (16, 144, 188, 3), dtype=np.uint8)
-    crops[::2] = crops[::2] // 16 * 16
-    np.savez(path, crops=crops, pal64=rng.integers(0, 256, (16, 64, 3), dtype=np.uint8),
-             pal256=rng.integers(0, 256, (16, 256, 3), dtype=np.uint8))
-    return path
 
 
 def _events_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -140,14 +126,12 @@ def _visit(root: str, inputs: str) -> dict:
         return json.load(open(f.name))
 
 
-def main(parent: str, inputs: str = None, out: str = None) -> dict:
+def main(parent: str, inputs: str) -> dict:
     """Visit parent, this tree, this tree, parent; return every visit and the
     summary."""
-    with tempfile.TemporaryDirectory() as tmp:
-        inputs = inputs or default_inputs(os.path.join(tmp, "k3_inputs.npz"))
-        order = [("parent", os.path.abspath(parent)), ("new", REPO), ("new", REPO),
-                 ("parent", os.path.abspath(parent))]
-        visits = [dict(tree=name, **_visit(root, inputs)) for name, root in order]
+    order = [("parent", os.path.abspath(parent)), ("new", REPO), ("new", REPO),
+             ("parent", os.path.abspath(parent))]
+    visits = [dict(tree=name, **_visit(root, inputs)) for name, root in order]
     summary = {}
     for kern in ("k4", "k3"):
         rows = []
@@ -160,25 +144,14 @@ def main(parent: str, inputs: str = None, out: str = None) -> dict:
         summary[kern] = rows
     ok = all(r["acc_rel"] <= K4_ACC_REL for v in visits for r in v["k4"]) and all(
         r["equal_to_plain"] for v in visits for r in v["k3"])
-    res = dict(ok=ok, order=[t for t, _ in order], summary=summary, visits=visits)
-    if out:
-        with open(out, "w") as f:
-            json.dump(res, f, indent=1)
-    return res
+    return dict(ok=ok, order=[t for t, _ in order], summary=summary, visits=visits)
 
 
-if __name__ == "__main__":
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="another checkout of the repo")
-    ap.add_argument("--child", help=argparse.SUPPRESS)
-    ap.add_argument("--inputs", default=None, help="an .npz of crops, pal64, pal256")
-    ap.add_argument("--out", default=None)
+if __name__ == "__main__":  # a child: time one tree, write its JSON to --out
+    ap = argparse.ArgumentParser(description="one child visit of the turns")
+    ap.add_argument("--child", required=True, help="the checkout to time")
+    ap.add_argument("--inputs", required=True, help="an .npz of crops, pal64, pal256")
+    ap.add_argument("--out", required=True)
     args = ap.parse_args()
-    if args.child:
-        res = child(args.child, args.inputs)
-        with open(args.out, "w") as f:
-            json.dump(res, f)
-        sys.exit(0)
-    res = main(args.parent, args.inputs, args.out)
-    print(json.dumps(dict(ok=res["ok"], summary=res["summary"])), flush=True)
-    sys.exit(0 if res["ok"] else 1)
+    with open(args.out, "w") as f:
+        json.dump(child(args.child, args.inputs), f)
