@@ -33,11 +33,28 @@ Phases, each printing one JSON line with its wall time:
               its rerun (nothing to do), k-means on the card against the CPU,
               and the per-crop route against the batched one, PNG for PNG,
               with one worker and with two (spawned, a CUDA context each)
-10. kernel_bench  the two kernel benches (slice 3's main path), about a
+10. train     training (slice 6's main path) on the datagen phase's tree
+              through the trainer CLI: the lightweight pix_shuffle with its
+              own criterion (VGG 0.007 on the committed self-trained asset,
+              Charbonnier, the HF term), 376x288 uint8 batches of 1,
+              accumulation 4, 2 epochs of 16 samples and 4 validation
+              samples with a seeded frame rendered, then a resume to epoch
+              3; conv5 (BatchNorm, SSIM) for one epoch of 2 steps. Checks:
+              finite losses, moved parameters and BN buffers, the CSV's
+              columns and epochs 1-3, the checkpoints and the render, K1's
+              counter 0 inside the train steps and one a validation batch,
+              validation through K1 within 1e-3 relative of apply_eager, one
+              fp32 step on the card against the CPU and fp64 (loss 1e-4
+              relative; each gradient leaf within 1e-3 of its max |g| of the
+              CPU's, or of fp64 beyond twice the CPU's own error). Then
+              samples/s, ms a step, the loader-wait share and peak memory
+              at accumulation 16, bf16, VGG on and off (one warm-up step,
+              32 micro-batches)
+11. kernel_bench  the two kernel benches (slice 3's main path), about a
               second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-11. timing    K1's and K2's device time a call (median, min and max of 3
+12. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -51,7 +68,7 @@ Phases, each printing one JSON line with its wall time:
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-12. kernels   every kernel launched, held against its plain version
+13. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -63,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -99,6 +117,12 @@ K1_MAX_ABS, K1_MEAN_ABS = 6e-3, 6e-4
 K4_ACC_REL, K4_O_ABS = 1e-3, 1e-6
 K4_PARITY_GRID, K4_BENCH_GRID = 2, 64
 PSNR_MIN_DB = 50.0
+# training: accumulation of the checked runs and of the timed loop;
+# validation through K1 against apply_eager (relative), and one fp32 step on
+# the card against the CPU (the loss relative, each gradient leaf against
+# its max |g|)
+TRAIN_ACCUM, TIMED_ACCUM = 4, 16
+TRAIN_VAL_REL, TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-3, 1e-4, 1e-3
 
 _phase = "start"
 
@@ -484,12 +508,14 @@ def timed_stages(dev, run) -> dict:
     return {"total_s": total, **{k: {"s": v[0], "calls": v[1]} for k, v in spent.items()}}
 
 
-def datagen(dev) -> dict:
+def datagen(dev, tree_dir=None) -> dict:
     """The port's generator on ``dev`` (slice 2's main path): two seeded
     1504x1152 images, 376x288 lores crops (at most 8 per image), kmeans_torch
     palettes 64 and 256, five dithers, device_batch 16, every launch counter
     from 0. Then its rerun, the k-means on ``dev`` against the CPU, and the
-    per-crop route on the first image against the batched run's PNGs."""
+    per-crop route on the first image against the batched run's PNGs. With
+    ``tree_dir`` the batched run's tree is copied there (the train phase
+    trains on it)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -538,6 +564,8 @@ def datagen(dev) -> dict:
         out = tree_bytes(batched.dest_dir)
         targets = sorted(k for k in out if os.path.basename(k).startswith("target_"))
         rerun = DatasetGenerator(batched).run()
+        if tree_dir:
+            shutil.copytree(batched.dest_dir, tree_dir)
 
         # the pre-styled lores crops of the run (the targets are the base crops)
         arrs = []
@@ -633,6 +661,349 @@ def k3_timing(dev, arrs, stacks):
     kmeans_ms = {k: median_ms(lambda: generate_palettes_kmeans_torch_batch(pts, k, device=dev),
                               n=5, warmup=1) for k in PALETTES}
     return rows, kmeans_ms
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def fp64_step(m, weights, lr_b, hr_b):
+    """The train step's loss and gradients in fp64 on the CPU, the
+    reference for its fp32 ones: the model's eager forward and its criterion
+    on each micro-batch of 1, the gradients summed and averaged as the step
+    does. ``weights`` fp32 on the CPU; returns ``(loss, [leaf gradients])``."""
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.data import batch_transform
+    from fs_uae_image_enhancer_project_tpu_torch.losses import build_criterion
+    from fs_uae_image_enhancer_project_tpu_torch.models import train_apply
+    from fs_uae_image_enhancer_project_tpu_torch.parallel import train_step as ts
+
+    p = {k: {n: t.double().requires_grad_() for n, t in v.items()} for k, v in weights.items()}
+    crit, fwd = build_criterion(m.loss, device="cpu"), train_apply(m)
+    to_float = batch_transform(True)
+    total = 0.0
+    n = len(lr_b)
+    for i in range(n):
+        x = to_float(torch.from_numpy(lr_b[i:i + 1])).double()
+        loss = crit(fwd(p, x), to_float(torch.from_numpy(hr_b[i:i + 1])).double()) / n
+        loss.backward()
+        total += loss.item()
+    return total, [t.grad for t in ts.leaves(p)]
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Dotted names of a nested dict's tensors, in ``train_step.leaves``'
+    order."""
+    names = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            names += _leaf_names(tree[k], prefix + k + ".")
+        else:
+            names.append(prefix + k)
+    return names
+
+
+def _wall_ms(fn, dev, n: int = 10) -> float:
+    """Mean ms a call on the host's clock, two warm-up calls, synchronised
+    at both ends (on a card the host's launches are included)."""
+    for _ in range(2):
+        fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    _sync(dev)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _device_busy(fn, dev):
+    """The card's kernel time in one call of ``fn`` from ``torch.profiler``:
+    ``(ms, the 8 kernels with the most time [(name, ms, calls)])``, the sum
+    of CUDA kernels' self time; ``(None, [])`` on the CPU or when the
+    profiler records no device time."""
+    if dev.type != "cuda":
+        return None, []
+    from fs_uae_image_enhancer_project_tpu_torch.utils.profiler import trace
+
+    with trace(cuda=True) as prof:
+        fn()
+        _sync(dev)
+    kernels = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+            kernels.append((e.key[:80], us / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    return (sum(k[1] for k in kernels) or None), kernels[:8]
+
+
+def step_timing(dev, pairs, crop, accum: int, steps: int, vgg: bool) -> dict:
+    """The trainer's loop (uint8 batches of 1 through the pinned prefetch,
+    ``accum`` micro-batches an optimizer step, bf16) on the lightweight
+    pix_shuffle with its own criterion (VGG on or off): one warm-up step,
+    then ``steps`` timed steps on the host's clock, ended by a synchronise.
+    The loader wait is the time the loop spends in the prefetch's ``next``;
+    the peak memory is torch's over the timed steps. Then the same steps on
+    the last step's batches, already on the device (the step without the
+    loader), and the card's kernel time in one of them (``torch.profiler``)."""
+    import dataclasses
+
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.data import (
+        SRDataset, batch_transform, device_prefetch)
+    from fs_uae_image_enhancer_project_tpu_torch.losses import build_criterion
+    from fs_uae_image_enhancer_project_tpu_torch.models import get_model, train_apply
+    from fs_uae_image_enhancer_project_tpu_torch.parallel import train_step as ts
+
+    m = get_model("pix_shuffle")
+    loss = m.loss if vgg else dataclasses.replace(m.loss, vgg_weight=0.0)
+    ds = SRDataset(pairs, crop, accum * (steps + 1), batch_size=1, linear=True, seed=4,
+                   transfer_dtype="uint8")
+    state = ts.init_train_state(m.init(torch.Generator().manual_seed(0), device=dev),
+                                ts.make_optimizer(steps_per_epoch=steps + 1))
+    step = ts.make_train_step(train_apply(m), build_criterion(loss, device=dev),
+                              compute_dtype=torch.bfloat16, input_transform=batch_transform(True))
+    batches = device_prefetch(iter(ds), device=dev)
+    wait = 0.0
+    losses = []
+    try:
+        for i in range(steps + 1):
+            if i == 1:  # after the warm-up step
+                _sync(dev)
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                wait, t0 = 0.0, time.perf_counter()
+            lrs, hrs = [], []
+            for _ in range(accum):
+                tw = time.perf_counter()
+                lr_b, hr_b = next(batches)
+                wait += time.perf_counter() - tw
+                lrs.append(lr_b)
+                hrs.append(hr_b)
+            state, loss_t = step(state, torch.stack(lrs), torch.stack(hrs))
+            losses.append(loss_t)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        batches.close()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    staged = torch.stack(lrs), torch.stack(hrs)
+    staged_ms = _wall_ms(lambda: step(state, *staged), dev, n=steps)
+    busy_ms, top = _device_busy(lambda: step(state, *staged), dev)
+    return dict(vgg=vgg, accumulation=accum, timed_steps=steps, micro_batches=accum * steps,
+                wall_s=wall, ms_per_step=wall / steps * 1e3,
+                samples_per_s=accum * steps / wall, loader_wait_s=wait,
+                loader_wait_share=wait / wall, max_memory_allocated=peak,
+                staged_ms_per_step=staged_ms, device_busy_ms_per_step=busy_ms,
+                device_busy_share=None if busy_ms is None else busy_ms / staged_ms,
+                top_kernels=top,
+                losses=[float(x) for x in torch.stack(losses).cpu()])
+
+
+def train_phase(dev, tree: str, crop=(CROP_W, CROP_H), accum: int = TRAIN_ACCUM,
+                train_samples: int = 16, val_samples: int = 4, timed_accum: int = TIMED_ACCUM,
+                timed_steps: int = 2) -> dict:
+    """Training (slice 6's main path) on the generator's tree at ``tree``,
+    through the trainer CLI on ``dev``: the lightweight pix_shuffle with its
+    own criterion (VGG on the committed self-trained asset), uint8 batches
+    of 1, ``accum`` micro-batches a step, 2 epochs of ``train_samples`` with
+    ``val_samples`` validation samples and one seeded frame to render, then
+    a resume to epoch 3; conv5 (BatchNorm, the SSIM criterion) for one epoch
+    of 2 steps. K1's launches are counted inside the train steps and in all.
+    Then validation through K1 against ``apply_eager``, one fp32 step on
+    ``dev`` against the same step on the CPU, and the timed loop
+    (:func:`step_timing`) with VGG on and off."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from fs_uae_image_enhancer_project_tpu_torch.data import (
+        SRDataset, batch_transform, gather_all_samples_from_directory, split_pairs)
+    from fs_uae_image_enhancer_project_tpu_torch.losses import build_criterion
+    from fs_uae_image_enhancer_project_tpu_torch.models import get_model, pix_shuffle, train_apply
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.parallel import train_step as ts
+    from fs_uae_image_enhancer_project_tpu_torch.train import cli
+    from fs_uae_image_enhancer_project_tpu_torch.train import trainer as tr
+
+    w, h = crop
+    m = get_model("pix_shuffle")
+    rec: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        samples = os.path.join(tmp, "samples")
+        os.makedirs(samples)
+        Image.fromarray(gradient_noise(h, w, seed=30)).save(os.path.join(samples, "frame0.png"))
+        ck, ck5 = os.path.join(tmp, "pix_shuffle"), os.path.join(tmp, "conv5")
+        common = ["--generator_train_dir", tree, "--crop_size", str(w), str(h),
+                  "--batch_size", "1", "--accumulation_steps", str(accum),
+                  "--checkpoint_interval", "1", "--verbose", "0", "--device", str(dev)]
+        pix = ["--model_type", "pix_shuffle", "--checkpoint_dir", ck, "--samples_dir", samples,
+               "--train_samples", str(train_samples), "--val_samples", str(val_samples), *common]
+
+        real = tr.make_train_step
+        in_steps = {"launches": 0, "steps": 0}
+
+        def counting(*a, **kw):  # K1's launches inside the train steps
+            step = real(*a, **kw)
+
+            def counted(state, lr_b, hr_b):
+                before = fs.fused_stack.launches
+                out = step(state, lr_b, hr_b)
+                in_steps["launches"] += fs.fused_stack.launches - before
+                in_steps["steps"] += 1
+                return out
+            return counted
+
+        tr.make_train_step = counting
+        fs.fused_stack.launches = 0
+        try:
+            t0 = time.perf_counter()
+            rcs = [cli.main(pix + ["--epochs", "2"])]
+            _sync(dev)
+            rec["two_epochs_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rcs.append(cli.main(pix + ["--epochs", "3"]))  # the resume
+            _sync(dev)
+            rec["resume_s"] = time.perf_counter() - t0
+            pix_steps = in_steps["steps"]
+            rcs.append(cli.main(["--model_type", "conv5", "--checkpoint_dir", ck5, "--epochs", "1",
+                                 "--train_samples", str(2 * accum), "--val_samples", "2",
+                                 *common]))
+        finally:
+            tr.make_train_step = real
+        rec.update(exit_codes=rcs, pix_shuffle_steps=pix_steps,
+                   conv5_steps=in_steps["steps"] - pix_steps,
+                   k1_launches={"train_steps": in_steps["launches"],
+                                "all": fs.fused_stack.launches},
+                   validation_batches=3 * val_samples)
+
+        with open(os.path.join(ck, "training_stats_pix_shuffle.csv")) as f:
+            rows = [line.rstrip("\n").split(",") for line in f]
+        rec["csv_header"] = rows[0]
+        rec["csv_epochs"] = [int(r[0]) for r in rows[1:]]
+        rec["csv_losses"] = [[float(r[1]), float(r[2])] for r in rows[1:]]
+        with open(os.path.join(ck, "metrics_pix_shuffle.jsonl")) as f:
+            rec["metrics"] = [json.loads(line) for line in f]
+        rec["files"] = {n: os.path.exists(os.path.join(ck, *n.split("/"))) for n in (
+            f"checkpoint_best_pix_shuffle/{tr.CHECKPOINT_FILE}",
+            *(f"checkpoint_epoch_{e}_pix_shuffle/{tr.CHECKPOINT_FILE}" for e in (1, 2, 3)),
+            "predicted/frame0.png")}
+        first = m.init(torch.Generator().manual_seed(0), device="cpu")
+        last = tr.load_params(os.path.join(ck, "checkpoint_epoch_3_pix_shuffle"), first)
+        rec["leaves_unmoved"] = sum(torch.equal(a, b) for a, b in zip(ts.leaves(first),
+                                                                    ts.leaves(last)))
+        c5 = torch.load(os.path.join(ck5, "checkpoint_epoch_1_conv5", tr.CHECKPOINT_FILE),
+                        map_location="cpu", weights_only=True)
+        rec["conv5_checkpoint_step"] = c5["step"]
+        rec["conv5_bn_unmoved"] = sum(
+            torch.equal(v["mean"], torch.zeros_like(v["mean"]))
+            or torch.equal(v["var"], torch.ones_like(v["var"])) for v in c5["buffers"].values())
+        best = tr.load_params(os.path.join(ck, "checkpoint_best_pix_shuffle"),
+                              m.init(device=dev))
+
+    # validation through K1 (m.apply, bf16 on a card) against apply_eager
+    pairs = gather_all_samples_from_directory(tree, crop, verbose=0)
+    train_pool, val_pool = split_pairs(pairs, 0.1)
+    crit = build_criterion(m.loss, device=dev)
+    to_float = batch_transform(True)
+    val = {"k1": [], "eager": []}
+    with torch.no_grad():
+        for lr_b, hr_b in SRDataset(val_pool, crop, val_samples, linear=True, flips=False, seed=1,
+                                    transfer_dtype="uint8"):
+            x = to_float(torch.from_numpy(lr_b).to(dev)).to(torch.bfloat16)
+            hr = to_float(torch.from_numpy(hr_b).to(dev))
+            val["k1"].append(crit(m.apply(best, x).float(), hr).item())
+            val["eager"].append(crit(pix_shuffle.apply_eager(best, x, m.config).float(), hr).item())
+    rec["val_loss_k1"] = float(np.mean(val["k1"]))
+    rec["val_loss_eager"] = float(np.mean(val["eager"]))
+    rec["val_rel_diff"] = abs(rec["val_loss_k1"] - rec["val_loss_eager"]) / rec["val_loss_eager"]
+    with torch.no_grad():  # a validation batch's time, and its forward's
+        rec["validation_ms"] = dict(
+            batch=_wall_ms(lambda: crit(m.apply(best, x).float(), hr), dev),
+            k1_forward=_wall_ms(lambda: m.apply(best, x), dev),
+            eager_forward=_wall_ms(lambda: pix_shuffle.apply_eager(best, x, m.config), dev))
+
+    # one fp32 step on dev against the same step on the CPU, from the
+    # trainer's seeded initial weights and from the trained ones, each
+    # gradient also against the same step in fp64 on the CPU (check_train)
+    lr_b, hr_b = next(iter(SRDataset(train_pool, crop, 2, batch_size=2, seed=2,
+                                     transfer_dtype="uint8")))
+    names = _leaf_names(best)
+    rec["fp32_step"] = {}
+    for label, weights in (("initial", m.init(torch.Generator().manual_seed(0), device="cpu")),
+                           ("trained", best)):
+        weights = {k: {n: t.detach().cpu() for n, t in v.items()} for k, v in weights.items()}
+        steps = {}
+        for where in (dev, torch.device("cpu")):
+            state = ts.init_train_state({k: {n: t.to(where) for n, t in v.items()}
+                                         for k, v in weights.items()},
+                                        ts.make_optimizer(lr=0.0, weight_decay=0.0))
+            step = ts.make_train_step(train_apply(m), build_criterion(m.loss, device=where),
+                                      compute_dtype=torch.float32, input_transform=to_float)
+            _, loss_t = step(state, torch.from_numpy(lr_b[:, None]).to(where),
+                             torch.from_numpy(hr_b[:, None]).to(where))
+            steps[where.type] = (loss_t.item(), [p.grad.cpu().double()
+                                                 for p in ts.leaves(state.params)])
+        (l_dev, g_dev), (l_cpu, g_cpu) = steps[dev.type], steps["cpu"]
+        l64, g64 = fp64_step(m, weights, lr_b, hr_b)
+        leaves = {}
+        for n, a, b, t in zip(names, g_dev, g_cpu, g64):
+            scale = float(t.abs().max())
+            leaves[n] = dict(dev_vs_cpu=float((a - b).abs().max()) / scale,
+                             dev_vs_fp64=float((a - t).abs().max()) / scale,
+                             cpu_vs_fp64=float((b - t).abs().max()) / scale)
+        rec["fp32_step"][label] = dict(
+            loss_dev=l_dev, loss_cpu=l_cpu, loss_fp64=l64,
+            loss_rel_diff=abs(l_dev - l_cpu) / abs(l_cpu),
+            grad_worst_dev_vs_cpu=max(v["dev_vs_cpu"] for v in leaves.values()),
+            grad_leaves=len(leaves),
+            leaves_over_1e4={n: v for n, v in leaves.items() if v["dev_vs_cpu"] > 1e-4})
+
+    rec["timing"] = [step_timing(dev, train_pool, crop, timed_accum, timed_steps, vgg=v)
+                     for v in (True, False)]
+    return rec
+
+
+def check_train(rec: dict, dev) -> None:
+    """The train phase's checks; K1 launches in validation only on a card."""
+    check(rec["exit_codes"] == [0, 0, 0], f"trainer CLI exit codes {rec['exit_codes']}")
+    check(rec["csv_header"] == ["Epoch", "Train Loss", "Validation Loss", "EpochsNoImprove",
+                                "LearningRate", "Checkpoint Path"],
+          f"CSV header {rec['csv_header']}")
+    check(rec["csv_epochs"] == [1, 2, 3], f"CSV epochs {rec['csv_epochs']}")
+    losses = [x for pair in rec["csv_losses"] for x in pair] + [
+        r[k] for r in rec["metrics"] for k in ("train_loss", "val_loss")]
+    losses += [x for t in rec["timing"] for x in t["losses"]]
+    check(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
+    check(all(rec["files"].values()), f"missing checkpoint or render: {rec['files']}")
+    check(rec["leaves_unmoved"] == 0, f"{rec['leaves_unmoved']} parameter leaves did not move")
+    check(rec["conv5_steps"] == 2 and rec["conv5_checkpoint_step"] == 2,
+          f"conv5 took {rec['conv5_steps']} steps")
+    check(rec["conv5_bn_unmoved"] == 0, f"{rec['conv5_bn_unmoved']} conv5 BN buffers did not move")
+    k1 = rec["k1_launches"]
+    check(k1["train_steps"] == 0, f"K1 launched {k1['train_steps']} times inside the train steps")
+    want = rec["validation_batches"] if dev.type == "cuda" else 0
+    check(k1["all"] == want, f"K1 launched {k1['all']} times, not once a validation batch ({want})")
+    check(rec["val_rel_diff"] <= TRAIN_VAL_REL,
+          f"validation through K1 vs apply_eager: rel {rec['val_rel_diff']}")
+    # each leaf of the card's fp32 gradient within 1e-3 of its max |g| of the
+    # CPU's or, on a leaf where fp32 itself cannot resolve 1e-3 (sums that
+    # nearly cancel: activation parameters, trained weights), no farther from
+    # the fp64 gradient than 1e-3 plus twice the CPU fp32's own distance from
+    # it; the CPU's fp32 measured up to 5e-3 from fp64 there (PERF.md, section 6)
+    fp = rec["fp32_step"]
+    for label in ("initial", "trained"):
+        check(fp[label]["loss_rel_diff"] <= TRAIN_LOSS_REL,
+              f"fp32 step loss, card vs cpu, {label} weights: {fp[label]}")
+        bad = {n: v for n, v in fp[label]["leaves_over_1e4"].items()
+               if v["dev_vs_cpu"] > TRAIN_GRAD_REL
+               and v["dev_vs_fp64"] > TRAIN_GRAD_REL + 2 * v["cpu_vs_fp64"]}
+        check(not bad, f"fp32 step gradients, card vs cpu and fp64, {label} weights: {bad}")
 
 
 def main(argv=None) -> int:
@@ -818,7 +1189,9 @@ def main(argv=None) -> int:
     # 9. datagen: slice 2's main path, every counter from 0
     _phase = "datagen"
     t0 = time.perf_counter()
-    dg = datagen(dev)
+    work = tempfile.TemporaryDirectory()
+    tree = os.path.join(work.name, "tree")
+    dg = datagen(dev, tree_dir=tree)
     emit("datagen", t0, **{k: v for k, v in dg.items() if k not in ("arrs", "stacks")})
     check(dg["stats"]["missing"] == 0, f"generator: {dg['stats']}")
     check(dg["targets"] == 16 and dg["styled"] == 16 * len(PALETTES) * len(DITHERS),
@@ -838,7 +1211,16 @@ def main(argv=None) -> int:
     check(dg["workers2_files_differing_from_batched"] == 0,
           "the two-worker per-crop route's PNGs differ from the batched run's")
 
-    # 10. kernel_bench: slice 3's main path, every counter from 0
+    # 10. train: slice 6's main path on the datagen phase's tree, K1's counter
+    # from 0 (the train steps must not launch it; validation does)
+    _phase = "train"
+    t0 = time.perf_counter()
+    trn = train_phase(dev, tree)
+    work.cleanup()
+    emit("train", t0, **trn, nvidia_smi=smi)
+    check_train(trn, dev)
+
+    # 11. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -848,7 +1230,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 11. timing at the main paths' shapes
+    # 12. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -913,12 +1295,13 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 12. kernels
+    # 13. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
         counterpart="ops/pallas/fused_stack.py::_stack_kernel",
-        launches=launches["fused_stack"], max_abs_err=k1_err, ms=k1_ms, kernel_ms=k1_ms,
+        launches=launches["fused_stack"], train_validation_launches=trn["k1_launches"]["all"],
+        max_abs_err=k1_err, ms=k1_ms, kernel_ms=k1_ms,
         plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms),
         dict(name="palette_dither", route="cuda", source=K3_SOURCE, replaces=K3_REPLACES,

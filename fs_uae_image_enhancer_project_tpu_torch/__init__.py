@@ -6,8 +6,22 @@ H100. Each Pallas kernel of the JAX package becomes a CUDA C++ kernel for
 ``sm_90a`` under ``ops/cuda``. The layout mirrors the JAX package, so each
 module sits where its counterpart does.
 
-Slice 1 holds the deployed frame path: ops, the pix_shuffle model, ONNX
-weight import, the uint8 enhance function and the unix-socket frame server.
+What is ported, by slice:
+
+1. the deployed frame path: ops, the pix_shuffle model, ONNX weight import,
+   the uint8 enhance function and the unix-socket frame server (K1);
+2. the dataset generator's device route (``datagen``, K3);
+3. the kernel benches (``scripts``, K2 and K4);
+4-5. the kernels' redesigns for the H100;
+6. training on one card: the losses with VGG (``losses``), the conv3/conv5
+   BatchNorm models (``models.conv_stack``), the dataset and its pinned
+   prefetch (``data.dataset``), the train step (``parallel.train_step``),
+   the trainer and its CLI (``train``). Validation of the lightweight
+   pix_shuffle runs through K1; the train step differentiates the eager
+   forward (K1 has no backward).
+
+Still to come: sharded training, conv6 and residual_unet, the other
+families' ONNX import, ONNX export, NAS and tooling (ROADMAP.md).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 :func:`resolve_device` raises when a card is asked for (or implied) and

@@ -1,3 +1,9 @@
-"""Generated-dataset filename codec (shared by the generator and, with the
-training slice, the dataset)."""
+"""The generated-dataset filename codec and the training data pipeline."""
 from .codec import construct_filename, parse_generated_filename  # noqa: F401
+from .dataset import (  # noqa: F401
+    SRDataset,
+    batch_transform,
+    device_prefetch,
+    gather_all_samples_from_directory,
+    split_pairs,
+)

@@ -87,7 +87,7 @@ def enhance_from_onnx(path: str, *, device=None, **kwargs):
     if kind != "pix_shuffle":
         raise NotImplementedError(
             f"artifact {path} is a {kind} graph; only pix_shuffle is ported so "
-            "far (the other families come with slice C of the port)"
+            "far (the other families' importers are ROADMAP.md, section 1, item 8)"
         )
     imp = import_pix_shuffle(path, model=model)
     # only the lightweight config is reconstructable (activation specs are

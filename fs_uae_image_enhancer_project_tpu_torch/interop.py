@@ -22,13 +22,16 @@ from . import resolve_device
 
 
 def params_from_jax(tree, device=None):
-    """Nested dict of numpy arrays (the JAX pytree, HWIO) -> nested dict of
-    fp32 tensors on ``device`` (default ``cuda``)."""
+    """Nested dicts and lists of numpy arrays (the JAX pytree, HWIO; VGG's
+    parameters are a list of dicts) -> the same nesting of fp32 tensors on
+    ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
         return torch.from_numpy(np.array(node, np.float32)).to(dev)
 
     return conv(tree)
@@ -38,4 +41,6 @@ def params_to_numpy(params):
     """The reverse of :func:`params_from_jax`: tensors -> fp32 numpy arrays."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
     return params.detach().to("cpu", torch.float32).numpy()

@@ -1,18 +1,36 @@
 """Model registry.
 
-``get_model("pix_shuffle", variant)`` returns a :class:`ModelDef`, the
-counterpart of the JAX package's registry. The other families (conv3, conv5,
-conv6, residual_unet) are ported in a later slice.
+``get_model(name, variant)`` returns a :class:`ModelDef`, the counterpart of
+the JAX package's registry: a frozen config, ``init(generator=None,
+device=None) -> params``, ``apply(params, x) -> y`` (NHWC float, linear light
+where ``linear_io``) and the model's training criterion spec (resolved by
+``losses.build_criterion``). pix_shuffle, conv3 and conv5 are ported; conv6
+and residual_unet raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Any, Callable, Dict, NamedTuple
 
-from . import pix_shuffle
-from .configs import ActSpec, ConvLayerSpec, PixShuffleConfig, act  # noqa: F401
+from . import conv_stack, pix_shuffle
+from .configs import ActSpec, ConvLayerSpec, ConvStackConfig, PixShuffleConfig, act  # noqa: F401
 
 MODEL_NAMES = ("pix_shuffle", "conv3", "conv5", "conv6", "residual_unet")
+
+
+@dataclasses.dataclass(frozen=True)
+class LossSpec:
+    """Which criterion a model trains with (resolved in ``losses``)."""
+
+    kind: str  # 'perceptual' | 'ssim'
+    pixel_loss_weight: float = 1.0
+    vgg_weight: float = 0.0
+    pixel_loss_type: str = "l1"  # 'l1' | 'charbonnier'
+    high_frequency_weight: float = 0.0
+    lambda_lum: float = 0.0
+    input_is_linear: bool = False
+    ssim_weight: float = 0.0
 
 
 class ModelDef(NamedTuple):
@@ -22,8 +40,25 @@ class ModelDef(NamedTuple):
     # init(generator=None, device=None) -> params
     init: Callable[..., Dict]
     apply: Callable[[Dict, Any], Any]
-    # True if apply() expects/returns linear-light RGB (pix_shuffle family)
+    loss: LossSpec
+    # True if apply() expects/returns linear-light RGB (pix_shuffle family);
+    # False for the sRGB-domain models (conv3/conv5)
     linear_io: bool
+
+
+# the reference's loss per model
+_PIX_SHUFFLE_LOSS = LossSpec(
+    kind="perceptual", pixel_loss_weight=0.990, vgg_weight=0.007,
+    pixel_loss_type="charbonnier", high_frequency_weight=0.003,
+    input_is_linear=True,
+)
+_CONV3_LOSS = LossSpec(
+    kind="perceptual", pixel_loss_weight=0.8, vgg_weight=0.2,
+    pixel_loss_type="charbonnier",
+)
+_CONV5_LOSS = LossSpec(
+    kind="ssim", pixel_loss_weight=0.99, ssim_weight=0.01, pixel_loss_type="l1",
+)
 
 
 def get_model(name: str, variant: str = "lightweight") -> ModelDef:
@@ -41,13 +76,33 @@ def get_model(name: str, variant: str = "lightweight") -> ModelDef:
             name, variant, cfg,
             partial(pix_shuffle.init, cfg),
             partial(pix_shuffle.apply, cfg=cfg),
-            linear_io=True,
+            _PIX_SHUFFLE_LOSS, linear_io=True,
+        )
+    if name in ("conv3", "conv5"):
+        cfg = (conv_stack.conv3_config if name == "conv3" else conv_stack.conv5_config)(variant)
+        return ModelDef(
+            name, variant, cfg,
+            partial(conv_stack.init, cfg),
+            partial(conv_stack.apply, cfg=cfg),
+            _CONV3_LOSS if name == "conv3" else _CONV5_LOSS, linear_io=False,
         )
     if name in MODEL_NAMES:
         raise NotImplementedError(
-            f"model family {name!r} is not ported yet (slice C of the port)"
+            f"model family {name!r} is not ported yet (ROADMAP.md, section 1, "
+            "item 8: the other model families)"
         )
     raise ValueError(f"Unknown model '{name}'. Known: {MODEL_NAMES}")
+
+
+def train_apply(model: ModelDef) -> Callable:
+    """The forward the train step differentiates. For pix_shuffle that is
+    ``pix_shuffle.apply_eager``, never ``apply``: ``apply`` sends a bf16
+    CUDA tensor to the fused-stack kernel K1, whose output carries no
+    gradient (K1 has no backward, as the Pallas kernel has none). The other
+    families' ``apply`` is eager already."""
+    if model.name == "pix_shuffle":
+        return partial(pix_shuffle.apply_eager, cfg=model.config)
+    return model.apply
 
 
 def count_params(params) -> int:

@@ -1,6 +1,6 @@
 """Structured model and activation configuration.
 
-The port's own copy of the pix_shuffle part of
+The port's own copy of the pix_shuffle and conv_stack parts of
 ``fs_uae_image_enhancer_project_tpu/models/configs.py``: frozen, hashable
 dataclasses that name a model's channel plan and activation slots.
 """
@@ -20,7 +20,6 @@ def act(name: str = "identity", **config: Any) -> ActSpec:
 
 def act_config(spec: ActSpec) -> Dict[str, Any]:
     return dict(spec[1])
-
 
 
 @dataclass(frozen=True)
@@ -57,3 +56,22 @@ class PixShuffleConfig:
     @property
     def unshuffled_channels(self) -> int:
         return self.in_channels * self.shuffle_factor**2
+
+
+@dataclass(frozen=True)
+class ConvStackConfig:
+    """Config for the conv3/conv5 family: Conv-BN-(act) stacks.
+
+    conv3: 3 layers, ReLU, no skips. conv5: 5 layers, ReLU, residual adds at
+    layers 2 and 4, Sigmoid output.
+    """
+
+    channels: Tuple[int, ...]  # per-layer output channels incl. the final 3
+    kernel_size: int = 3
+    residual_layers: Tuple[int, ...] = ()  # 0-based indices with identity add
+    final_act: str = "none"  # 'none' | 'sigmoid'
+    uint8_rgba_contract: bool = False  # conv3's deployment forward contract
+
+    def __post_init__(self):
+        if self.kernel_size % 2 == 0:
+            raise ValueError("kernel_size must be odd for symmetric padding")

@@ -1,0 +1,129 @@
+"""The conv3 / conv5 family: Conv-BN-ReLU stacks (the BatchNorm models).
+
+Port of ``fs_uae_image_enhancer_project_tpu/models/conv_stack.py``: conv3
+(3 bias-free convs + BN + ReLU, no skips) and conv5 (5 layers, residual adds
+at layers 2 and 4 before the activation, Sigmoid output). Both train on
+float sRGB and deploy fused (each BN folded into its conv, :func:`fuse`).
+NHWC tensors; parameters in the JAX package's nested dict with HWIO convs.
+
+Their ONNX importer and enhance kind are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .. import resolve_device
+from ..ops.conv import (
+    batchnorm_inference,
+    batchnorm_train,
+    conv2d,
+    fuse_conv_bn,
+    init_batchnorm,
+    init_conv,
+)
+from .configs import ConvStackConfig
+
+Params = Dict[str, dict]
+
+
+def conv3_config(variant: str = "lightweight") -> ConvStackConfig:
+    """Lightweight 32/64, heavyweight 192/256."""
+    ch = (32, 64) if variant == "lightweight" else (192, 256)
+    return ConvStackConfig(
+        channels=(ch[0], ch[1], 3), kernel_size=3, residual_layers=(),
+        final_act="none", uint8_rgba_contract=True,
+    )
+
+
+def conv5_config(variant: str = "lightweight") -> ConvStackConfig:
+    """Lightweight 32/64, heavyweight 64/128: channels c1, c1, c2, c2, 3 with
+    residual adds at layers 2 and 4 (0-based 1 and 3)."""
+    c1, c2 = (32, 64) if variant == "lightweight" else (64, 128)
+    return ConvStackConfig(
+        channels=(c1, c1, c2, c2, 3), kernel_size=3, residual_layers=(1, 3),
+        final_act="sigmoid",
+    )
+
+
+def init(cfg: ConvStackConfig, generator: Optional[torch.Generator] = None, device=None,
+         in_channels: int = 3) -> Params:
+    """Fresh parameters (torch.nn.Conv2d's default init, bias-free convs, BN
+    at torch's defaults), drawn from ``generator`` on the CPU and placed on
+    ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    params: Params = {}
+    cin = in_channels
+    for i, cout in enumerate(cfg.channels):
+        params[f"conv{i + 1}"] = init_conv(cin, cout, cfg.kernel_size, use_bias=False,
+                                           generator=generator, device=dev)
+        params[f"bn{i + 1}"] = init_batchnorm(cout, device=dev)
+        cin = cout
+    return params
+
+
+def _act(x: torch.Tensor, cfg: ConvStackConfig, is_last: bool) -> torch.Tensor:
+    if not is_last:
+        return torch.relu(x)
+    if cfg.final_act == "sigmoid":
+        return torch.sigmoid(x)
+    return x
+
+
+def apply(params: Params, x: torch.Tensor, cfg: ConvStackConfig, *, train: bool = False):
+    """Float RGB forward, NHWC in and out. With ``train`` it also returns the
+    updated batchnorm stats, ``(y, {bn_key: stats})`` (the functional form of
+    torch's in-place running-stat update)."""
+    new_stats: Params = {}
+    n_layers = len(cfg.channels)
+    for i in range(n_layers):
+        li = i + 1
+        skip = x if i in cfg.residual_layers else None
+        x = conv2d(params[f"conv{li}"], x)
+        bn_key = f"bn{li}"
+        if bn_key in params:
+            if train:
+                x, new_stats[bn_key] = batchnorm_train(params[bn_key], x)
+            else:
+                x = batchnorm_inference(params[bn_key], x)
+        if skip is not None:
+            x = skip + x  # residual add before the activation
+        x = _act(x, cfg, i == n_layers - 1)
+    if train:
+        return x, new_stats
+    return x
+
+
+def fuse(params: Params, cfg: ConvStackConfig) -> Params:
+    """Fold each BN into its conv: the deployment-form parameters."""
+    fused: Params = {}
+    for i in range(len(cfg.channels)):
+        li = i + 1
+        conv = params[f"conv{li}"]
+        bn = params.get(f"bn{li}")
+        fused[f"conv{li}"] = fuse_conv_bn(conv, bn) if bn is not None else dict(conv)
+    return fused
+
+
+def apply_fused(params: Params, x: torch.Tensor, cfg: ConvStackConfig, *,
+                relu_before_residual_add: bool = False) -> torch.Tensor:
+    """Forward with BN already folded into the convs.
+
+    ``relu_before_residual_add=True`` is the reference's deployed conv5: its
+    fused conv+bn+relu units apply ReLU before the skip add (the shipped ONNX
+    graphs are Conv->Relu->Add), where training adds and then activates."""
+    n_layers = len(cfg.channels)
+    for i in range(n_layers):
+        skip = x if i in cfg.residual_layers else None
+        x = conv2d(params[f"conv{i + 1}"], x)
+        is_last = i == n_layers - 1
+        if relu_before_residual_add:
+            x = _act(x, cfg, is_last)
+            if skip is not None:
+                x = skip + x
+        else:
+            if skip is not None:
+                x = skip + x
+            x = _act(x, cfg, is_last)
+    return x

@@ -21,7 +21,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.activations import apply_activation, init_activation
-from ..ops.conv import conv2d, init_conv
+from ..ops.conv import conv2d, init_conv, no_tf32
 from ..ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 from .configs import ActSpec, ConvLayerSpec, PixShuffleConfig, act, act_config
 
@@ -146,15 +146,11 @@ def apply(params: Params, x: torch.Tensor, cfg: PixShuffleConfig) -> torch.Tenso
 
 def apply_eager(params: Params, x: torch.Tensor, cfg: PixShuffleConfig) -> torch.Tensor:
     """The eager forward in ``x.dtype`` on any device (cuDNN's convolutions on
-    a card). Its convolutions run with TF32 off
-    (``torch.backends.cudnn.allow_tf32`` is set to False for the call and
-    restored after), so that fp32 is fp32 on a card, as in the JAX package."""
-    keep = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    a card), with TF32 off (:func:`ops.conv.no_tf32`), so that fp32 is fp32
+    on a card, as in the JAX package. It is the forward the train step
+    differentiates: K1 has no backward."""
+    with no_tf32():
         return _forward(params, x, cfg, lambda _tag, t: t)
-    finally:
-        torch.backends.cudnn.allow_tf32 = keep
 
 
 def _forward(params: Params, x: torch.Tensor, cfg: PixShuffleConfig, tap):

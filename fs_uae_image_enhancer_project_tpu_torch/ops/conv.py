@@ -1,17 +1,20 @@
-"""NHWC 2-D convolution (plain PyTorch path).
+"""NHWC 2-D convolution and batchnorm (plain PyTorch path).
 
-Port of ``conv2d`` / ``init_conv`` in ``fs_uae_image_enhancer_project_tpu/
-ops/conv.py``. Parameters are ``{"w": (kh, kw, cin, cout) HWIO, "b": (cout,)}``
-in fp32, tensors are NHWC at the public functions, and the compute dtype is
+Port of ``fs_uae_image_enhancer_project_tpu/ops/conv.py``: ``conv2d``,
+``init_conv``, the depthwise conv of the Laplacian loss, batchnorm in
+inference and training mode, and the conv-BN fold. Parameters are
+``{"w": (kh, kw, cin, cout) HWIO, "b": (cout,)}`` in fp32, tensors are NHWC
+at the public functions, and the compute dtype is
 the input's (weights are cast to match). Init mirrors torch.nn.Conv2d's
 defaults: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias.
 
 On a card, a float32 convolution goes through cuDNN in TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is False; callers that need full fp32
-(the JAX package uses ``Precision.HIGHEST``) set it.
+(the JAX package uses ``Precision.HIGHEST``) run under :func:`no_tf32`.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional
 
@@ -62,3 +65,87 @@ def conv2d(params: Params, x: torch.Tensor, *, padding: str = "SAME") -> torch.T
     y = F.conv2d(x.permute(0, 3, 1, 2), w,
                  None if b is None else b.to(x.dtype), padding=pad)
     return y.permute(0, 2, 3, 1)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full fp32 in cuDNN's convolutions and in matmuls for the block (the
+    JAX package's ``Precision.HIGHEST``); the flags are restored after. The
+    flags are read when a kernel is launched, so a backward pass that must be
+    fp32 runs inside the block too."""
+    keep = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = keep
+
+
+def depthwise_conv2d(kernel: torch.Tensor, x: torch.Tensor, *,
+                     padding: str = "SAME") -> torch.Tensor:
+    """Depthwise conv of NHWC ``x`` with one (kh, kw) kernel shared by every
+    channel (the Laplacian high-frequency loss filter)."""
+    c = x.shape[-1]
+    kh, kw = kernel.shape
+    w = kernel.to(x.dtype).reshape(1, 1, kh, kw).expand(c, 1, kh, kw)
+    if padding == "SAME":
+        pad = (kh // 2, kw // 2)
+    elif padding == "VALID":
+        pad = 0
+    else:
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    return F.conv2d(x.permute(0, 3, 1, 2), w, padding=pad, groups=c).permute(0, 2, 3, 1)
+
+
+def init_batchnorm(c: int, *, device=None, dtype=torch.float32) -> Params:
+    """BatchNorm2d params and running stats (torch defaults)."""
+    return {
+        "scale": torch.ones((c,), dtype=dtype, device=device),
+        "bias": torch.zeros((c,), dtype=dtype, device=device),
+        "mean": torch.zeros((c,), dtype=dtype, device=device),
+        "var": torch.ones((c,), dtype=dtype, device=device),
+    }
+
+
+def batchnorm_inference(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode batchnorm over the NHWC channel axis, running stats."""
+    inv = torch.rsqrt(params["var"].float() + eps)
+    scale = params["scale"].float() * inv
+    shift = params["bias"].float() - params["mean"].float() * scale
+    return x * scale.to(x.dtype) + shift.to(x.dtype)
+
+
+def batchnorm_train(params: Params, x: torch.Tensor, momentum: float = 0.1,
+                    eps: float = 1e-5):
+    """Training-mode batchnorm: ``(y, updated stats)``.
+
+    Batch statistics over (N, H, W) in fp32; the running stats follow
+    torch's ``running = (1 - momentum) * running + momentum * batch`` with
+    the unbiased variance. The new stats carry no gradient.
+    """
+    xf = x.float()
+    mean = xf.mean(dim=(0, 1, 2))
+    var = xf.var(dim=(0, 1, 2), unbiased=False)
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    y = ((xf - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]).to(x.dtype)
+    mean, var = mean.detach(), var.detach()
+    unbiased = var * (n / max(n - 1, 1))
+    new_stats = {
+        "scale": params["scale"],
+        "bias": params["bias"],
+        "mean": (1 - momentum) * params["mean"] + momentum * mean,
+        "var": (1 - momentum) * params["var"] + momentum * unbiased,
+    }
+    return y, new_stats
+
+
+def fuse_conv_bn(conv: Params, bn: Params, eps: float = 1e-5) -> Params:
+    """Fold a batchnorm into the conv before it: the deployed form, one conv
+    a layer."""
+    w = conv["w"].float()
+    b = conv.get("b")
+    b = torch.zeros((w.shape[-1],), device=w.device) if b is None else b.float()
+    inv = torch.rsqrt(bn["var"].float() + eps)
+    gamma, beta, mean = bn["scale"].float(), bn["bias"].float(), bn["mean"].float()
+    return {"w": w * (gamma * inv).reshape(1, 1, 1, -1), "b": beta + (b - mean) * gamma * inv}

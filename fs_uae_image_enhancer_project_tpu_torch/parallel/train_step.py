@@ -1,0 +1,180 @@
+"""The training step on one card.
+
+Port of the single-device half of
+``fs_uae_image_enhancer_project_tpu/parallel/train_step.py``: forward in the
+compute dtype, the loss in fp32, backward, gradient accumulation over
+micro-batches and the optimizer step.
+
+- The step loops over the micro-batch axis: ``backward`` adds each
+  micro-batch's gradient into ``.grad``, and the sum is divided by the number
+  of micro-batches, as the JAX package's ``lax.scan`` does. BatchNorm running
+  stats thread through the micro-batches in order.
+- Mixed precision is the JAX package's, not autocast's: the input is cast to
+  the compute dtype (bf16 by default) and each conv casts its fp32 weight to
+  the input's dtype, so activations are bf16, parameters and gradients fp32,
+  and the criterion runs on fp32 tensors. Forward and backward run with
+  TF32 off (:func:`ops.conv.no_tf32`), so fp32 convolutions (VGG's) are fp32.
+- The optimizer is ``torch.optim.Adam`` with ``weight_decay`` (an L2 term
+  folded into the gradient before the moments: optax's
+  ``add_decayed_weights`` before ``scale_by_adam``) and a staircase
+  exponential decay of the learning rate every ``steps_per_epoch`` steps.
+- Batchnorm models keep their running stats in the state's ``buffers``,
+  outside the optimizer.
+
+The multi-card half (data and spatial sharding) is not ported yet: a
+``mesh`` raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..ops.conv import no_tf32
+
+
+class TrainState(NamedTuple):
+    step: int
+    params: Any  # trainable fp32 leaf tensors (requires_grad)
+    buffers: Any  # batchnorm running stats; {} if none
+    optimizer: torch.optim.Optimizer
+    scheduler: Any  # the learning-rate decay, stepped once a step
+
+
+def split_bn_buffers(params: Dict) -> Tuple[Dict, Dict]:
+    """Split batchnorm running stats out of a conv_stack parameter dict:
+    ``(trainable, buffers)``; buffers is {} for models without BN."""
+    trainable, buffers = {}, {}
+    for k, v in params.items():
+        if k.startswith("bn") and isinstance(v, dict) and "mean" in v:
+            trainable[k] = {"scale": v["scale"], "bias": v["bias"]}
+            buffers[k] = {"mean": v["mean"], "var": v["var"]}
+        else:
+            trainable[k] = v
+    return trainable, buffers
+
+
+def merge_bn_buffers(trainable: Dict, buffers: Dict) -> Dict:
+    if not buffers:
+        return trainable
+    merged = dict(trainable)
+    for k, stats in buffers.items():
+        merged[k] = {**trainable[k], **stats}
+    return merged
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in leaves(tree[k])]
+    return [tree]
+
+
+def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-5,
+                   lr_decay_rate: float = 0.955, steps_per_epoch: Optional[int] = None):
+    """Adam(wd=1e-5) and a per-epoch decay of 0.955, the reference trainer's.
+
+    Returns ``build(tensors) -> (optimizer, scheduler)``: torch's optimizer
+    holds its parameters, so it is made once the parameters exist
+    (:func:`init_train_state`). The scheduler is stepped after every
+    optimizer step; the learning rate of step ``s`` (from 0) is
+    ``lr * lr_decay_rate ** (s // steps_per_epoch)``, optax's staircase
+    ``exponential_decay``, and stays ``lr`` without ``steps_per_epoch``.
+    """
+
+    def build(tensors):
+        opt = torch.optim.Adam(tensors, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=weight_decay)
+        if steps_per_epoch:
+            factor = lambda s: lr_decay_rate ** (s // steps_per_epoch)  # noqa: E731
+        else:
+            factor = lambda s: 1.0  # noqa: E731
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+
+    return build
+
+
+def init_train_state(params: Dict, optimizer, *, has_batchnorm: bool = False) -> TrainState:
+    """A fresh state: the trainable parameters as new fp32 leaves that
+    require grad (copies, so the caller's dict is left alone), the
+    batchnorm stats as buffers, and ``optimizer`` (from
+    :func:`make_optimizer`) built over the trainable leaves."""
+    if has_batchnorm:
+        trainable, buffers = split_bn_buffers(params)
+    else:
+        trainable, buffers = params, {}
+
+    def own(node, grad):
+        if isinstance(node, dict):
+            return {k: own(v, grad) for k, v in node.items()}
+        return node.detach().to(torch.float32).clone().requires_grad_(grad)
+
+    trainable, buffers = own(trainable, True), own(buffers, False)
+    opt, sched = optimizer(leaves(trainable))
+    return TrainState(0, trainable, buffers, opt, sched)
+
+
+def make_train_step(
+    model_apply: Callable,
+    criterion: Callable,
+    *,
+    has_batchnorm: bool = False,
+    compute_dtype=torch.bfloat16,
+    mesh=None,
+    input_transform: Optional[Callable] = None,
+):
+    """Build ``train_step(state, lr_batch, hr_batch) -> (state, loss)``.
+
+    Batches are (micro, per_micro, H, W, C): the leading axis is the
+    gradient accumulation. ``input_transform`` (e.g.
+    ``data.dataset.batch_transform`` for uint8 batches) runs per micro-batch
+    on the device. ``model_apply`` must be differentiable: for pix_shuffle it
+    is ``models.train_apply(model)``, the eager forward. The returned loss is
+    the mean over micro-batches, a device tensor (no sync with the host).
+    The state's parameters and optimizer are updated in place; the returned
+    state has the step count and the batchnorm stats of this step.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded training (a mesh) is not ported yet: ROADMAP.md, section 1, "
+            "item 7 (parallel/); the port trains on one card")
+    if input_transform is None:
+        input_transform = lambda x: x  # noqa: E731
+
+    def loss_fn(params, lr_mb, hr_mb):
+        x = input_transform(lr_mb).to(compute_dtype)
+        hr_mb = input_transform(hr_mb)
+        if has_batchnorm:
+            y, bn_updates = model_apply(params, x, train=True)
+            # only the running stats: scale and bias are trainable
+            bn_updates = {k: {"mean": v["mean"], "var": v["var"]}
+                          for k, v in bn_updates.items()}
+        else:
+            y = model_apply(params, x)
+            bn_updates = {}
+        return criterion(y.float(), hr_mb.float()), bn_updates
+
+    def train_step(state: TrainState, lr_batch, hr_batch):
+        tensors = leaves(state.params)
+        for p in tensors:
+            p.grad = None
+        n_micro = lr_batch.shape[0]
+        buffers = state.buffers
+        loss_sum = torch.zeros((), dtype=torch.float32, device=lr_batch.device)
+        with no_tf32():
+            for i in range(n_micro):
+                loss, bn_updates = loss_fn(merge_bn_buffers(state.params, buffers),
+                                           lr_batch[i], hr_batch[i])
+                loss.backward()
+                loss_sum += loss.detach()
+                if bn_updates:
+                    buffers = {**buffers, **bn_updates}
+        for p in tensors:
+            if p.grad is None:  # a parameter the forward did not reach
+                p.grad = torch.zeros_like(p)
+            p.grad.div_(n_micro)
+        state.optimizer.step()
+        state.scheduler.step()
+        return state._replace(step=state.step + 1, buffers=buffers), loss_sum / n_micro
+
+    return train_step

@@ -1,6 +1,7 @@
 """The port on a CUDA card: K1, K2, K3 and K4 against their plain versions,
 the forward's route by config and dtype, the enhance path, the frame stream,
-and the generator's device stage. Every test
+the generator's device stage, the pinned prefetch and the train step (which
+never launches K1). Every test
 here needs a card (marker ``gpu``) and skips without one. It imports neither jax nor the JAX package, so it also runs on a
 machine that has only the port's dependencies:
 
@@ -326,3 +327,57 @@ def test_device_batched_stage_on_the_card(cuda):
     assert k3.palette_dither.launches == before + 1
     want = style_batch_on_device(arrs, 64, "ordered", BAYER_MATRIX_4X4, "kmeans_torch", "cpu")
     np.testing.assert_array_equal(got, want)
+
+
+def test_pinned_prefetch_delivers_the_batches_on_the_card(cuda):
+    """device_prefetch on a card: pinned buffers, a side-stream copy and an
+    event; the batches arrive on the card byte for byte, and closing early
+    retires the producer."""
+    import threading
+    import time
+
+    from fs_uae_image_enhancer_project_tpu_torch.data import device_prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, (1, 288, 376, 3), dtype=np.uint8),
+                rng.integers(0, 256, (1, 288, 376, 3), dtype=np.uint8)) for _ in range(6)]
+    got = list(device_prefetch(iter(batches), size=2, device=cuda))
+    assert len(got) == 6
+    for (a, b), (x, y) in zip(batches, got):
+        assert x.is_cuda and y.is_cuda
+        assert np.array_equal(x.cpu().numpy(), a) and np.array_equal(y.cpu().numpy(), b)
+    n_before = threading.active_count()
+    gen = device_prefetch(iter(batches * 20), size=2, device=cuda)
+    next(gen)
+    gen.close()
+    deadline = time.time() + 30
+    while threading.active_count() > n_before and time.time() < deadline:
+        time.sleep(0.05)
+    assert threading.active_count() <= n_before
+
+
+def test_train_step_on_the_card_never_launches_k1(cuda):
+    """A bf16 train step of the lightweight pix_shuffle on the card: every
+    parameter gets a finite gradient and K1 is not launched (its output has
+    no gradient); the same weights' bf16 forward through apply launches it."""
+    import dataclasses
+
+    from fs_uae_image_enhancer_project_tpu_torch.losses import build_criterion
+    from fs_uae_image_enhancer_project_tpu_torch.models import train_apply
+    from fs_uae_image_enhancer_project_tpu_torch.parallel import train_step as ts
+
+    m = get_model("pix_shuffle")
+    loss = dataclasses.replace(m.loss, vgg_weight=0.0)
+    state = ts.init_train_state(_params(cuda), ts.make_optimizer())
+    step = ts.make_train_step(train_apply(m), build_criterion(loss, device=cuda))
+    x = torch.rand(2, 1, 32, 48, 3, generator=torch.Generator().manual_seed(0)).to(cuda)
+    before = fs.fused_stack.launches
+    state, loss_t = step(state, x, x.flip(-2))
+    torch.cuda.synchronize()
+    assert fs.fused_stack.launches == before
+    assert torch.isfinite(loss_t)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in ts.leaves(state.params))
+    with torch.no_grad():
+        m.apply(state.params, x[0].to(torch.bfloat16))
+    assert fs.fused_stack.launches == before + 1

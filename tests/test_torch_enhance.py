@@ -164,7 +164,9 @@ def _imports(path):
 
 # the kernel benches' slice: its modules are among those checked
 NEW_MODULES = ("utils.profiler", "utils.threefry", "ops.cuda.fused_stack_packed",
-               "ops.cuda.lane_packing", "scripts.bench_fused_stack", "scripts.bench_lane_packing")
+               "ops.cuda.lane_packing", "scripts.bench_fused_stack", "scripts.bench_lane_packing",
+               "losses.vgg", "losses.perceptual", "losses.ssim", "models.conv_stack",
+               "data.dataset", "parallel.train_step", "train.trainer", "train.cli")
 
 
 def test_port_chip_smoke_and_card_tests_import_no_jax():

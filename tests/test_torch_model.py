@@ -88,8 +88,10 @@ def test_interop_round_trip_is_exact():
 def test_registry_errors():
     with pytest.raises(ValueError):
         get_model("pix_shuffle", "medium")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        get_model("conv6")
     with pytest.raises(NotImplementedError):
-        get_model("conv3")
+        get_model("residual_unet")
     with pytest.raises(ValueError):
         get_model("nope")
 

@@ -1,0 +1,288 @@
+"""The port's trainer and training CLI on the CPU, mirroring
+``tests/test_trainer.py``: end to end and resume (with the BN model), the
+fresh optimizer at the CSV's learning rate, the checkpoint round trip, the
+CSV loader on the committed histories (as the JAX package reads them), the
+first epoch's train loss against the JAX trainer (VGG off, fp32, JAX's
+initial weights, the same data seeds: rel 1e-3), and the CLI."""
+import csv
+import dataclasses
+import glob
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import jax
+
+from fs_uae_image_enhancer_project_tpu.data import SRDataset as JaxDataset
+from fs_uae_image_enhancer_project_tpu.models import get_model as jax_model
+from fs_uae_image_enhancer_project_tpu.train import trainer as JT
+from fs_uae_image_enhancer_project_tpu_torch.data import (
+    SRDataset,
+    gather_all_samples_from_directory,
+    split_pairs,
+)
+from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
+from fs_uae_image_enhancer_project_tpu_torch.models import get_model
+from fs_uae_image_enhancer_project_tpu_torch.parallel.train_step import (
+    init_train_state,
+    leaves,
+    make_optimizer,
+)
+from fs_uae_image_enhancer_project_tpu_torch.train import cli
+from fs_uae_image_enhancer_project_tpu_torch.train import trainer as T
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def tiny_dataset(tmp_path):
+    """A 3-location generated tree with 16x16 crops."""
+    rng = np.random.default_rng(0)
+    d = tmp_path / "train" / "img1"
+    d.mkdir(parents=True)
+    for loc in ((0, 0), (8, 8), (4, 4)):
+        base = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+        Image.fromarray(base).save(d / f"target_{loc[0]}_{loc[1]}_s100_r0.png")
+        Image.fromarray((base // 32) * 32).save(
+            d / f"lores_{loc[0]}_{loc[1]}_s100_r0_rgb444_p32_dnone.png")
+    return str(tmp_path / "train")
+
+
+def _cfg(ckpt_dir, **kw):
+    base = dict(num_epochs=2, lr=1e-3, batch_size=2, accumulation_steps=2,
+                checkpoint_interval=1, checkpoint_dir=ckpt_dir, verbose=0, device="cpu")
+    return T.TrainerConfig(**{**base, **kw})
+
+
+def _rows(path):
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def test_csv_resume_roundtrip(tmp_path):
+    csv_file = str(tmp_path / "training_stats_x.csv")
+    assert T.load_last_epoch_and_checkpoint(0.01, csv_file) == (0, float("inf"), 0, 0, 0.01, None)
+    T.save_training_stats(csv_file, 1, 0.5, 0.4, 0, 0.001, "ckpt1")
+    T.save_training_stats(csv_file, 2, 0.45, 0.42, 1, 0.00095, "ckpt2")
+    assert T.load_last_epoch_and_checkpoint(0.01, csv_file) == (2, 0.4, 1, 1, 0.00095, "ckpt2")
+    assert _rows(csv_file)[0] == JT.CSV_HEADER == T.CSV_HEADER
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(
+    REPO, "artifacts", "training_demo", "training_stats_*.csv"))))
+def test_csv_loader_reads_committed_histories_as_jax_does(path):
+    for lr in (0.01, 1e-3):
+        assert T.load_last_epoch_and_checkpoint(lr, path) == \
+            JT.load_last_epoch_and_checkpoint(lr, path)
+
+
+def _state(name="pix_shuffle", seed=0, **kw):
+    m = get_model(name)
+    return init_train_state(m.init(torch.Generator().manual_seed(seed), device="cpu"),
+                            make_optimizer(**kw), has_batchnorm=name != "pix_shuffle")
+
+
+def test_checkpoint_roundtrip(tmp_path):
+    state = _state("conv5", steps_per_epoch=2)
+    for p in leaves(state.params):  # an optimizer step, so Adam has moments
+        p.grad = torch.ones_like(p)
+    state.optimizer.step()
+    state.scheduler.step()
+    state = state._replace(step=7)
+    path = str(tmp_path / "ckpt")
+    T.save_checkpoint(path, state)
+    assert os.listdir(path) == [T.CHECKPOINT_FILE]
+    T.save_checkpoint(path, state)  # overwrites in place
+    restored = T.load_checkpoint(path, _state("conv5", seed=1, steps_per_epoch=2))
+    assert restored.step == 7
+    for a, b in zip(leaves(restored.params) + leaves(restored.buffers),
+                    leaves(state.params) + leaves(state.buffers)):
+        assert torch.equal(a, b)
+    assert restored.optimizer.state_dict()["state"][0]["step"] == 1
+    assert restored.scheduler.state_dict()["last_epoch"] == 1
+    m = get_model("conv5")
+    params = T.load_params(path, m.init(device="cpu"))
+    assert torch.equal(params["bn2"]["mean"], state.buffers["bn2"]["mean"])
+    assert torch.equal(params["conv3"]["w"], state.params["conv3"]["w"])
+
+
+def test_orbax_checkpoint_raises(tmp_path):
+    """A directory of the JAX package's orbax files is refused by name."""
+    from fs_uae_image_enhancer_project_tpu.parallel.train_step import (
+        init_train_state as jax_state,
+        make_optimizer as jax_optimizer,
+    )
+
+    path = str(tmp_path / "checkpoint_best_pix_shuffle")
+    JT.save_checkpoint(path, jax_state(jax_model("pix_shuffle").init(jax.random.key(0)),
+                                       jax_optimizer()))
+    with pytest.raises(ValueError, match="orbax"):
+        T.load_params(path, get_model("pix_shuffle").init(device="cpu"))
+    with pytest.raises(FileNotFoundError):
+        T.load_checkpoint(str(tmp_path / "nothing"), _state())
+
+
+def test_trainer_end_to_end_and_resume_with_the_bn_model(tiny_dataset, tmp_path):
+    m = get_model("conv5")
+    pairs = gather_all_samples_from_directory(tiny_dataset, (16, 16), verbose=0)
+    train_pool, val_pool = split_pairs(pairs, 0.34)
+    ckpt_dir = str(tmp_path / "ckpts")
+    train_ds = SRDataset(train_pool, (16, 16), num_samples=8, batch_size=2, linear=False,
+                         transfer_dtype="uint8")
+    val_ds = SRDataset(val_pool, (16, 16), num_samples=4, batch_size=2, linear=False,
+                       flips=False, transfer_dtype="uint8")
+    best_val, best_epoch, _ = T.Trainer(m, _cfg(ckpt_dir)).train(train_ds, val_ds)
+    assert np.isfinite(best_val) and best_epoch >= 1
+    stats = os.path.join(ckpt_dir, "training_stats_conv5.csv")
+    assert os.path.isfile(os.path.join(ckpt_dir, "checkpoint_best_conv5", T.CHECKPOINT_FILE))
+    assert os.path.isfile(os.path.join(ckpt_dir, "checkpoint_epoch_2_conv5", T.CHECKPOINT_FILE))
+    saved = torch.load(os.path.join(ckpt_dir, "checkpoint_epoch_2_conv5", T.CHECKPOINT_FILE),
+                       weights_only=True)
+    assert saved["step"] == 4 and set(saved["buffers"]) == {f"bn{i}" for i in range(1, 6)}
+    assert not torch.equal(saved["buffers"]["bn1"]["var"], torch.ones(32))  # the stats moved
+
+    # resume: the epochs continue from the CSV, none is trained twice
+    T.Trainer(m, _cfg(ckpt_dir, num_epochs=3)).train(train_ds, val_ds)
+    rows = _rows(stats)
+    assert rows[0] == T.CSV_HEADER
+    epochs = [int(r[0]) for r in rows[1:]]
+    assert epochs == [1, 2, 3]
+    assert all(np.isfinite(float(r[1])) and np.isfinite(float(r[2])) for r in rows[1:])
+
+
+def test_resume_uses_fresh_optimizer_with_csv_lr(tiny_dataset, tmp_path):
+    """CSV resume restores the weights and the learning rate but not the
+    schedule's count: the decay is not applied twice."""
+    m = get_model("pix_shuffle")
+    m = m._replace(loss=dataclasses.replace(m.loss, vgg_weight=0.0, high_frequency_weight=0.0))
+    pairs = gather_all_samples_from_directory(tiny_dataset, (16, 16), verbose=0)
+    ckpt_dir = str(tmp_path / "ck")
+    ds = SRDataset(pairs, (16, 16), num_samples=8, batch_size=2)
+    T.Trainer(m, _cfg(ckpt_dir, lr_decay_rate=0.5)).train(ds, None)
+    T.Trainer(m, _cfg(ckpt_dir, lr_decay_rate=0.5, num_epochs=3)).train(ds, None)
+    rows = [json.loads(line) for line in open(os.path.join(ckpt_dir, "metrics_pix_shuffle.jsonl"))]
+    lr2 = next(r["lr"] for r in rows if r["epoch"] == 2)
+    lr3 = next(r["lr"] for r in rows if r["epoch"] == 3)
+    assert lr3 == pytest.approx(lr2 * 0.5, rel=1e-6)
+
+
+def test_resume_with_a_missing_checkpoint_raises(tiny_dataset, tmp_path):
+    m = get_model("conv5")
+    ckpt_dir = str(tmp_path / "gone")
+    os.makedirs(ckpt_dir)
+    T.save_training_stats(os.path.join(ckpt_dir, "training_stats_conv5.csv"), 1, 0.3, 0.3, 0,
+                          1e-3, str(tmp_path / "deleted_checkpoint"))
+    pairs = gather_all_samples_from_directory(tiny_dataset, (16, 16), verbose=0)
+    ds = SRDataset(pairs, (16, 16), num_samples=2, linear=False)
+    with pytest.raises(FileNotFoundError, match="resume checkpoint"):
+        T.Trainer(m, _cfg(ckpt_dir, num_epochs=2)).train(ds, None)
+
+
+def test_first_epoch_loss_matches_the_jax_trainer(tiny_dataset, tmp_path):
+    """VGG off, fp32, JAX's initial weights (jax.random.key(0), the JAX
+    trainer's own), the same pools and data seeds: the first epoch's train
+    loss within rel 1e-3."""
+    jm = jax_model("pix_shuffle")
+    jm = jm._replace(loss=dataclasses.replace(jm.loss, vgg_weight=0.0))
+    m = get_model("pix_shuffle")
+    m = m._replace(loss=dataclasses.replace(m.loss, vgg_weight=0.0))
+    pairs = gather_all_samples_from_directory(tiny_dataset, (16, 16), verbose=0)
+    kw = dict(num_samples=8, batch_size=2, seed=3, transfer_dtype="uint8")
+    cfg = dict(num_epochs=1, batch_size=2, accumulation_steps=2, checkpoint_interval=1,
+               verbose=0, compute_dtype="float32")
+    JT.Trainer(jm, JT.TrainerConfig(checkpoint_dir=str(tmp_path / "jax"), **cfg)).train(
+        JaxDataset(pairs, (16, 16), **kw), None)
+    tr = T.Trainer(m, T.TrainerConfig(checkpoint_dir=str(tmp_path / "port"), device="cpu", **cfg))
+    ds = SRDataset(pairs, (16, 16), **kw)
+    params = params_from_jax(jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.key(0))), device="cpu")
+    tr.train(ds, None, state=init_train_state(params, tr.optimizer(1e-3, ds)))
+    want = float(_rows(str(tmp_path / "jax" / "training_stats_pix_shuffle.csv"))[1][1])
+    got = float(_rows(str(tmp_path / "port" / "training_stats_pix_shuffle.csv"))[1][1])
+    assert got == pytest.approx(want, rel=1e-3)
+
+
+def _cli_args(tiny_dataset, ckpt_dir, *extra):
+    return ["--model_type", "pix_shuffle", "--generator_train_dir", tiny_dataset,
+            "--checkpoint_dir", ckpt_dir, "--crop_size", "16", "16", "--batch_size", "1",
+            "--accumulation_steps", "2", "--train_samples", "4", "--val_samples", "2",
+            "--val_split_ratio", "0.34", "--checkpoint_interval", "1", "--verbose", "0",
+            *extra]
+
+
+def test_cli_trains_a_tiny_tree_on_the_cpu(tiny_dataset, tmp_path, capsys):
+    samples = tmp_path / "samples"
+    samples.mkdir()
+    Image.fromarray(np.random.default_rng(1).integers(0, 256, (16, 16, 3), dtype=np.uint8)).save(
+        samples / "s0.png")
+    ckpt_dir = str(tmp_path / "cli")
+    args = _cli_args(tiny_dataset, ckpt_dir, "--samples_dir", str(samples), "--device", "cpu")
+    assert cli.main(args + ["--epochs", "2"]) == 0
+    assert "Best validation loss" in capsys.readouterr().out
+    assert os.path.isfile(os.path.join(ckpt_dir, "checkpoint_best_pix_shuffle", T.CHECKPOINT_FILE))
+    assert os.path.isfile(os.path.join(ckpt_dir, "predicted", "s0.png"))
+    assert cli.main(args + ["--epochs", "3"]) == 0  # resume
+    rows = _rows(os.path.join(ckpt_dir, "training_stats_pix_shuffle.csv"))
+    assert [int(r[0]) for r in rows[1:]] == [1, 2, 3]
+
+
+def test_cli_refuses_sharding_and_a_missing_card(tiny_dataset, tmp_path, capsys):
+    base = _cli_args(tiny_dataset, str(tmp_path / "x"), "--epochs", "1")
+    assert cli.main(base + ["--n_devices", "2", "--device", "cpu"]) == 1
+    assert "parallel slice" in capsys.readouterr().err
+    assert cli.main(base + ["--spatial", "2", "--device", "cpu"]) == 1
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(base)
+
+
+def test_chip_smoke_train_phase_on_the_cpu(tmp_path):
+    """chip_smoke.py's train phase rehearsed on the CPU at a small size (on
+    a card it runs at 376x288 on the generator's tree): the checks pass, K1
+    is never launched on the CPU, and a launch inside a train step or a
+    validation loss off apply_eager's fails them."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(0)
+    for img in range(2):
+        d = tmp_path / "tree" / f"img_{img}"
+        d.mkdir(parents=True)
+        for loc in range(5):
+            base = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+            Image.fromarray(base).save(d / f"target_{loc * 8}_0_s0_r0.png")
+            for pal in (16, 32):
+                Image.fromarray((base // pal) * pal).save(
+                    d / f"lores_{loc * 8}_0_s0_r0_rgb444_p{pal}_dNone.png")
+    cpu = torch.device("cpu")
+    rec = cs.train_phase(cpu, str(tmp_path / "tree"), crop=(32, 32), accum=2, train_samples=4,
+                         val_samples=2, timed_accum=2, timed_steps=2)
+    cs.check_train(rec, cpu)
+    assert rec["pix_shuffle_steps"] == 6 and rec["conv5_steps"] == 2
+    assert rec["k1_launches"] == {"train_steps": 0, "all": 0}
+    assert [t["micro_batches"] for t in rec["timing"]] == [4, 4]
+    assert [t["vgg"] for t in rec["timing"]] == [True, False]
+    # the fp64 reference: both fp32 gradients near it, the CPU's identical
+    for fp in rec["fp32_step"].values():
+        assert fp["grad_worst_dev_vs_cpu"] == 0.0 and fp["grad_leaves"] == 24
+        assert fp["loss_fp64"] == pytest.approx(fp["loss_cpu"], rel=1e-5)
+    json.dumps(rec)  # printable as the phase's line
+    # a leaf that fp32 cannot resolve to 1e-3 on either device passes when
+    # the card is within 1e-3 plus twice the CPU's own distance of fp64 (a
+    # trained leaf measured on the card: 7.3e-3 against the CPU's 5.0e-3)
+    near = {"l7_act2.slope": dict(dev_vs_cpu=2.2e-3, dev_vs_fp64=7.3e-3, cpu_vs_fp64=5.0e-3)}
+    cs.check_train({**rec, "fp32_step": dict(rec["fp32_step"], initial=dict(
+        rec["fp32_step"]["initial"], leaves_over_1e4=near))}, cpu)
+    for bad in ({"k1_launches": {"train_steps": 1, "all": 1}}, {"val_rel_diff": 2e-3},
+                {"csv_epochs": [1, 2, 2, 3]}, {"conv5_bn_unmoved": 1},
+                {"fp32_step": dict(rec["fp32_step"], initial=dict(
+                    rec["fp32_step"]["initial"], leaves_over_1e4={"conv1.w": dict(
+                        dev_vs_cpu=2e-3, dev_vs_fp64=2.1e-3, cpu_vs_fp64=5e-4)}))},
+                {"fp32_step": dict(rec["fp32_step"], trained=dict(
+                    rec["fp32_step"]["trained"], loss_rel_diff=2e-4))}):
+        with pytest.raises(AssertionError):
+            cs.check_train({**rec, **bad}, cpu)
