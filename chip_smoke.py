@@ -27,13 +27,25 @@ Phases, each printing one JSON line with its wall time:
 7. enhance    8 seeded 576x752 RGBA frames through enhance_from_onnx on cuda
 8. server     the port's frame server at depth 0 and 2 (slice 1's main path):
               every launch counter is set to 0 just before and read just after
-9. datagen    the port's dataset generator (slice 2's main path) on two seeded
+9. families   every other model family of the served path (slice 7's main
+              path), the six shipped graphs artifacts/model_{conv3,
+              conv3_heavy,conv5,conv5_heavy,conv6,residual_unet}, one seeded
+              576x752 frame each, counters from 0 (no kernel of the repo on
+              this path: cuDNN's convolutions): shape, dtype and alpha, on
+              the card; the bf16 enhance against the fp32 one (no TF32)
+              >= 50 dB; the card's fp32 against the CPU's on a 160x160
+              window within one level; the imported weights re-exported at
+              the graph's own precision by the port's exporter give the
+              shipped file's bytes, and its frames equal the shipped
+              graph's; the U-Net served at depth 2, byte-equal to the direct
+              enhance
+10. datagen   the port's dataset generator (slice 2's main path) on two seeded
               1504x1152 images, 376x288 lores crops, kmeans_torch palettes 64
               and 256, five dithers, device_batch 16, counters from 0; then
               its rerun (nothing to do), k-means on the card against the CPU,
               and the per-crop route against the batched one, PNG for PNG,
               with one worker and with two (spawned, a CUDA context each)
-10. train     training (slice 6's main path) on the datagen phase's tree
+11. train     training (slice 6's main path) on the datagen phase's tree
               through the trainer CLI: the lightweight pix_shuffle with its
               own criterion (VGG 0.007 on the committed self-trained asset,
               Charbonnier, the HF term), 376x288 uint8 batches of 1,
@@ -50,11 +62,11 @@ Phases, each printing one JSON line with its wall time:
               samples/s, ms a step, the loader-wait share and peak memory
               at accumulation 16, bf16, VGG on and off (one warm-up step,
               32 micro-batches)
-11. kernel_bench  the two kernel benches (slice 3's main path), about a
+12. kernel_bench  the two kernel benches (slice 3's main path), about a
               second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-12. timing    K1's and K2's device time a call (median, min and max of 3
+13. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -62,13 +74,15 @@ Phases, each printing one JSON line with its wall time:
               time of one torch.matmul(bf16(a), w) times the 512 products
               (cuBLAS's time for the same products: library_ms) and of the
               eager torch.matmul chain (chain_ms); of K3, its plain version,
-              cdist + topk, the batched k-means
+              cdist + topk, the batched k-means; of every family (ms a
+              frame from CUDA events, device ms a frame, GFLOP a frame from
+              the shapes, share of the bf16 peak, the kernels cuDNN ran)
     turns     with --parent DIR (another checkout, e.g. the parent commit
               unpacked with git archive under build/): K3 and K4 of both
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-13. kernels   every kernel launched, held against its plain version
+14. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -123,6 +137,14 @@ PSNR_MIN_DB = 50.0
 # its max |g|)
 TRAIN_ACCUM, TIMED_ACCUM = 4, 16
 TRAIN_VAL_REL, TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-3, 1e-4, 1e-3
+
+# slice 7: the other families' shipped graphs, the card-vs-CPU window (the
+# U-Net's width after its crop of 16, 144, and 160 are divisible by 2^3) and
+# the most a uint8 value of the card's fp32 may differ from the CPU's
+FAMILIES = ("conv3", "conv3_heavy", "conv5", "conv5_heavy", "conv6", "residual_unet")
+FAMILY_WINDOW = 160
+FAMILY_MAX_LEVELS = 1
+SERVE_DEPTH = 2
 
 _phase = "start"
 
@@ -722,11 +744,11 @@ def _wall_ms(fn, dev, n: int = 10) -> float:
 
 def _device_busy(fn, dev):
     """The card's kernel time in one call of ``fn`` from ``torch.profiler``:
-    ``(ms, the 8 kernels with the most time [(name, ms, calls)])``, the sum
-    of CUDA kernels' self time; ``(None, [])`` on the CPU or when the
-    profiler records no device time."""
+    ``(ms, the 8 kernels with the most time [(name, ms, calls)], kernel
+    launches)``, the ms the sum of CUDA kernels' self time; ``(None, [], 0)``
+    on the CPU or when the profiler records no device time."""
     if dev.type != "cuda":
-        return None, []
+        return None, [], 0
     from fs_uae_image_enhancer_project_tpu_torch.utils.profiler import trace
 
     with trace(cuda=True) as prof:
@@ -738,7 +760,7 @@ def _device_busy(fn, dev):
             us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
             kernels.append((e.key[:80], us / 1e3, e.count))
     kernels.sort(key=lambda k: -k[1])
-    return (sum(k[1] for k in kernels) or None), kernels[:8]
+    return (sum(k[1] for k in kernels) or None), kernels[:8], sum(k[2] for k in kernels)
 
 
 def step_timing(dev, pairs, crop, accum: int, steps: int, vgg: bool) -> dict:
@@ -794,7 +816,7 @@ def step_timing(dev, pairs, crop, accum: int, steps: int, vgg: bool) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     staged = torch.stack(lrs), torch.stack(hrs)
     staged_ms = _wall_ms(lambda: step(state, *staged), dev, n=steps)
-    busy_ms, top = _device_busy(lambda: step(state, *staged), dev)
+    busy_ms, top, _ = _device_busy(lambda: step(state, *staged), dev)
     return dict(vgg=vgg, accumulation=accum, timed_steps=steps, micro_batches=accum * steps,
                 wall_s=wall, ms_per_step=wall / steps * 1e3,
                 samples_per_s=accum * steps / wall, loader_wait_s=wait,
@@ -1006,6 +1028,174 @@ def check_train(rec: dict, dev) -> None:
         check(not bad, f"fp32 step gradients, card vs cpu and fp64, {label} weights: {bad}")
 
 
+def family_artifact(name: str) -> str:
+    return os.path.join(REPO, "artifacts", f"model_{name}", f"{name}.onnx")
+
+
+def reexport(path: str, out: str) -> str:
+    """Write the weights imported from ``path`` back out with the port's
+    exporter, at the graph's own precision (fp16 initializers or fp32) and
+    with its wrapper (the conv stacks' ReLU before the add, the U-Net's
+    crop)."""
+    from fs_uae_image_enhancer_project_tpu_torch.export import onnx_export
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_import import import_any
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_proto import FLOAT16, load_model
+    from fs_uae_image_enhancer_project_tpu_torch.models import get_model
+    from fs_uae_image_enhancer_project_tpu_torch.models.configs import ConvStackConfig
+
+    imp = import_any(path)
+    fp16 = any(t.data_type == FLOAT16 for t in load_model(path).graph.initializers.values())
+    if imp.kind == "conv_stack":
+        cfg = ConvStackConfig(channels=tuple(imp.params[f"conv{i + 1}"]["w"].shape[-1]
+                                             for i in range(imp.num_conv_layers)),
+                              residual_layers=imp.residual_layers)
+        return onnx_export.export_conv_stack_onnx(
+            imp.params, cfg, out, fp16=fp16,
+            relu_before_residual_add=imp.relu_before_residual_add)
+    if imp.kind == "conv6":
+        return onnx_export.export_conv6_onnx(imp.params, get_model("conv6").config, out,
+                                             fp16=fp16)
+    return onnx_export.export_residual_unet_onnx(
+        imp.params, get_model("residual_unet").config, out, fp16=fp16,
+        crop_left=imp.crop_left)
+
+
+def frame_gflop(fn, frame) -> float:
+    """The convolutions' GFLOP (2 x MACs) of one call, counted from the
+    shapes by ``torch.utils.flop_counter.FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        fn(frame)
+    return fc.get_total_flops() / 1e9
+
+
+def families(dev, frame_hw=(576, 752), window: int = FAMILY_WINDOW,
+             serve_frames: int = 6) -> dict:
+    """Slice 7's main path: each shipped graph of the other families through
+    ``enhance_from_onnx`` on ``dev`` at ``frame_hw``, held to its fp32 run,
+    to the CPU's fp32 on a ``window`` square, and to its own re-export; then
+    the U-Net through the frame server at depth 2. Every kernel counter is
+    set to 0 before and read after (the path runs none of them). Returns
+    the records and, under ``fns``, each family's bf16 enhance fn."""
+    import numpy as np
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.export.enhance import enhance_from_onnx
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_import import import_any
+    from fs_uae_image_enhancer_project_tpu_torch.runtime.sidecar import (
+        SidecarClient, SidecarServer)
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    rng = np.random.default_rng(7)
+    frames = rng.integers(0, 256, (serve_frames, *frame_hw, 4), dtype=np.uint8)
+    frame = frames[:1]
+    win = frame[:, :window, :window]
+    recs, fns = {}, {}
+    for name in FAMILIES:
+        path = family_artifact(name)
+        imp = import_any(path)
+        enh16 = enhance_from_onnx(path, device=dev)
+        enh32 = enhance_from_onnx(path, device=dev, compute_dtype=torch.float32)
+        o16, o32 = enh16(frame), enh32(frame)
+        on_device = o16.device.type == o32.device.type == dev.type
+        o16, o32 = o16.cpu().numpy(), o32.cpu().numpy()
+        cpu32 = enhance_from_onnx(path, device="cpu", compute_dtype=torch.float32)(win).numpy()
+        levels = np.abs(enh32(win).cpu().numpy().astype(int) - cpu32.astype(int))
+        with tempfile.TemporaryDirectory() as tmp:
+            out = reexport(path, os.path.join(tmp, "re.onnx"))
+            with open(out, "rb") as a, open(path, "rb") as b:
+                bytes_equal = a.read() == b.read()
+            re16 = enhance_from_onnx(out, device=dev)(frame).cpu().numpy()
+        recs[name] = dict(
+            kind=imp.kind, crop_left=imp.crop_left, shape=list(o16.shape), dtype=str(o16.dtype),
+            on_device=on_device, alpha_255=bool((o16[..., 3] == 255).all()),
+            psnr_bf16_vs_fp32_db=psnr(o16[..., :3], o32[..., :3]),
+            card_vs_cpu_fp32_max_levels=int(levels.max()),
+            card_vs_cpu_fp32_differing_share=float((levels > 0).mean()),
+            reexport_bytes_equal=bytes_equal,
+            reexport_frames_equal=bool(np.array_equal(re16, o16)),
+            gflop=frame_gflop(enh16, torch.from_numpy(frame).to(dev)))
+        fns[name] = enh16
+    # the U-Net through the frame server
+    enh = fns["residual_unet"]
+    direct = [enh(frames[i:i + 1]).cpu().numpy()[0] for i in range(serve_frames)]
+    with tempfile.TemporaryDirectory() as tmp:
+        sock = os.path.join(tmp, "families.sock")
+        server = SidecarServer(enh, sock, height=frame_hw[0], width=frame_hw[1],
+                               depth=SERVE_DEPTH, verbose=0, device=dev, client_timeout=60.0)
+        server.warmup()
+        server.bind()
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        client = SidecarClient(sock, timeout=60.0)
+        try:
+            got = [r for r in (client.submit(f) for f in frames) if r is not None]
+            got += client.drain()
+            client.shutdown_server()
+        finally:
+            client.close()
+        th.join(timeout=10)
+    served = dict(model="residual_unet", depth=SERVE_DEPTH, frames=len(got),
+                  joined=not th.is_alive(),
+                  byte_equal=len(got) == serve_frames
+                  and all(np.array_equal(g, d) for g, d in zip(got, direct)))
+    return dict(families=recs, served=served,
+                launches={k: c.launches for k, c in counters.items()}, fns=fns, frame=frame)
+
+
+def check_families(rec: dict) -> None:
+    for name, r in rec["families"].items():
+        check(r["on_device"], f"{name}: the enhance did not stay on the device")
+        check(r["shape"][-1] == 4 and r["dtype"] == "uint8" and r["alpha_255"],
+              f"{name}: bad output {r['shape']} {r['dtype']} alpha {r['alpha_255']}")
+        check(r["psnr_bf16_vs_fp32_db"] >= PSNR_MIN_DB,
+              f"{name}: bf16 {r['psnr_bf16_vs_fp32_db']} dB from fp32 < {PSNR_MIN_DB}")
+        check(r["card_vs_cpu_fp32_max_levels"] <= FAMILY_MAX_LEVELS,
+              f"{name}: the device's fp32 {r['card_vs_cpu_fp32_max_levels']} levels from the CPU's")
+        check(r["reexport_bytes_equal"] and r["reexport_frames_equal"],
+              f"{name}: the re-export differs (bytes {r['reexport_bytes_equal']}, "
+              f"frames {r['reexport_frames_equal']})")
+    s = rec["served"]
+    check(s["joined"] and s["byte_equal"], f"served {s['model']}: {s}")
+    check(not any(rec["launches"].values()),
+          f"the families' path launched a kernel of the repo: {rec['launches']}")
+
+
+def _counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_packed as k2
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import lane_packing as k4
+
+    return {"fused_stack": fs.fused_stack, "fused_stack_packed": k2.fused_stack_packed,
+            "palette_dither": k3.palette_dither, "lane_packing_mm": k4.lane_packing_mm}
+
+
+def family_timing(dev, fns: dict, frame, gflops: dict) -> list:
+    """ms a frame (CUDA events around single calls), the device's ms a frame
+    (``device_times``), the share of the bf16 peak, and the kernels the
+    device ran in one frame (``torch.profiler``), each family's bf16 enhance
+    on a device frame."""
+    import torch
+
+    frame_dev = torch.from_numpy(frame).to(dev)
+    rows = []
+    for name, fn in fns.items():
+        ms = median_ms(lambda: fn(frame_dev))
+        dev_ms = device_ms(lambda: fn(frame_dev), n=20)
+        busy, top, n_kernels = _device_busy(lambda: fn(frame_dev), dev)
+        bound = gflops[name] * 1e9 / PEAK_BF16_FLOPS * 1e3
+        rows.append(dict(family=name, ms_per_frame=ms, device_ms_per_frame=dev_ms["ms"],
+                         device=dev_ms, gflop=gflops[name], bound_ms=bound,
+                         share_of_peak=bound / dev_ms["ms"], profiled_kernel_ms=busy,
+                         kernels_per_frame=n_kernels, top_kernels=top))
+    return rows
+
+
 def main(argv=None) -> int:
     global _phase
     import argparse
@@ -1186,7 +1376,15 @@ def main(argv=None) -> int:
     check(launches["fused_stack"] > 0, "the server ran without launching K1")
     emit("server", t0, launches=launches, **served)
 
-    # 9. datagen: slice 2's main path, every counter from 0
+    # 9. families: slice 7's main path, every counter from 0
+    _phase = "families"
+    t0 = time.perf_counter()
+    fam = families(dev)
+    emit("families", t0, families=fam["families"], served=fam["served"],
+         launches=fam["launches"], max_levels=FAMILY_MAX_LEVELS, window=FAMILY_WINDOW)
+    check_families(fam)
+
+    # 10. datagen: slice 2's main path, every counter from 0
     _phase = "datagen"
     t0 = time.perf_counter()
     work = tempfile.TemporaryDirectory()
@@ -1211,7 +1409,7 @@ def main(argv=None) -> int:
     check(dg["workers2_files_differing_from_batched"] == 0,
           "the two-worker per-crop route's PNGs differ from the batched run's")
 
-    # 10. train: slice 6's main path on the datagen phase's tree, K1's counter
+    # 11. train: slice 6's main path on the datagen phase's tree, K1's counter
     # from 0 (the train steps must not launch it; validation does)
     _phase = "train"
     t0 = time.perf_counter()
@@ -1220,7 +1418,7 @@ def main(argv=None) -> int:
     emit("train", t0, **trn, nvidia_smi=smi)
     check_train(trn, dev)
 
-    # 11. kernel_bench: slice 3's main path, every counter from 0
+    # 12. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -1230,7 +1428,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 12. timing at the main paths' shapes
+    # 13. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -1264,6 +1462,8 @@ def main(argv=None) -> int:
     k3_ref = next(r for r in k3_rows if r["n"] == 256 and r["mode"] == "bayer4x4")
     check(all(r["equal_to_plain"] for r in k3_rows),
           "K3 differs from its plain version on the generator's crops and palettes")
+    fam_rows = family_timing(dev, fam["fns"], fam["frame"],
+                             {k: r["gflop"] for k, r in fam["families"].items()})
     emit("timing", t0, shape=[h2, w2, 12], gflop=flops / 1e9, mbytes=nbytes / 1e6,
          k1_ms=k1_ms, k1_device=k1_dev, k1_again_device=k1_again, k1_call_ms=k1_call_ms,
          bound_ms=bound_ms, share_of_bound=bound_ms / k1_ms,
@@ -1275,7 +1475,7 @@ def main(argv=None) -> int:
          enhance_device_ms=enhance_dev,
          enhance_fps=1e3 / enhance_ms, k3_shape=list(dg["arrs"].shape), k3=k3_rows,
          kmeans_ms=kmeans_ms, datagen_styled_crops_per_s=dg["styled_crops_per_s"],
-         nvidia_smi=smi)
+         families=fam_rows, nvidia_smi=smi)
 
     # turns: K3 and K4 against another tree's, in child processes
     if args.parent:
@@ -1295,7 +1495,7 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 13. kernels
+    # 14. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,

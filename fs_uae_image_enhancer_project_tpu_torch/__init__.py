@@ -18,10 +18,13 @@ What is ported, by slice:
    prefetch (``data.dataset``), the train step (``parallel.train_step``),
    the trainer and its CLI (``train``). Validation of the lightweight
    pix_shuffle runs through K1; the train step differentiates the eager
-   forward (K1 has no backward).
+   forward (K1 has no backward);
+7. every model family on the served path: conv6, the residual U-Net and its
+   blocks (``models``), every shipped graph's import and enhance, and the
+   ONNX exporter, its numpy runner and its CLI (``export``).
 
-Still to come: sharded training, conv6 and residual_unet, the other
-families' ONNX import, ONNX export, NAS and tooling (ROADMAP.md).
+Still to come: sharded training, ``torch.export`` for the JAX package's
+StableHLO export, NAS and tooling (ROADMAP.md).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 :func:`resolve_device` raises when a card is asked for (or implied) and

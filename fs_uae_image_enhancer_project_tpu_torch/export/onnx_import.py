@@ -1,9 +1,11 @@
-"""Import the shipped pix_shuffle ONNX artifact into a parameter dict.
+"""Import the shipped ONNX artifacts into parameter dicts.
 
-Port of ``import_pix_shuffle``, ``_detect_crop_left`` and ``_gamma_exponents``
-of ``fs_uae_image_enhancer_project_tpu/export/onnx_import.py``. The result is
-the JAX package's nested dict of numpy arrays (conv weights OIHW -> HWIO,
-fp16 -> fp32); :func:`..interop.params_from_jax` turns it into tensors.
+Port of ``fs_uae_image_enhancer_project_tpu/export/onnx_import.py``: one
+importer a family (:func:`import_pix_shuffle`, :func:`import_conv_stack`,
+:func:`import_native` for conv6 and the U-Net) and :func:`import_any`, which
+routes a graph to its importer. The result is the JAX package's nested dict
+of numpy arrays (conv weights OIHW -> HWIO, fp16 -> fp32);
+:func:`..interop.params_from_jax` turns it into tensors.
 
 Shipped-artifact quirks kept here:
 - ``pix_shuffle.onnx`` runs at full 752 width (crop 0): it predates the
@@ -11,12 +13,15 @@ Shipped-artifact quirks kept here:
 - Its linear->sRGB exponent is the fp16-rounded 0.4546, not 1/2.2.
 - biased_prelu slopes are exported anonymously; they are bound through the
   PRelu node whose outputs are scoped ``/l{i}_act{j}/...``.
+- conv3/conv5 graphs carry fused conv+BN weights; the deployed conv5 graph
+  has no final sigmoid and applies ReLU before the residual adds, and the
+  conv graphs are sRGB-domain (no gamma pow in the wrapper).
 """
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -35,12 +40,15 @@ _NATIVE_GRAPH_KINDS = {
 
 @dataclass
 class ImportedModel:
-    kind: str  # 'pix_shuffle'
+    kind: str  # 'pix_shuffle' | 'conv_stack' | 'conv6' | 'residual_unet'
     params: Params
     num_conv_layers: int
+    residual_layers: tuple = ()
+    # the wrapper contract observed in the graph
     has_gamma: bool = False
     linear_to_srgb_exponent: float = 0.4546
     srgb_to_linear_exponent: float = 2.2
+    relu_before_residual_add: bool = False
     crop_left: int = 0  # width crop observed in the input wrapper
     source: str = ""
 
@@ -158,3 +166,103 @@ def _gamma_exponents(model: Model):
     if s2l is None or l2s is None:
         return None
     return float(s2l.to_numpy()), float(l2s.to_numpy())
+
+
+def import_conv_stack(path: str, model: Model = None) -> ImportedModel:
+    """Load a conv3/conv5 graph (fused conv+BN) into fused parameters. The
+    residual adds are found by walking the graph: an Add whose two inputs
+    both descend from convs (through Relus or earlier Adds)."""
+    model = model if model is not None else load_model(path)
+    params: Params = {}
+    n_convs = 0
+    for name, t in model.graph.initializers.items():
+        m = re.fullmatch(r"conv(\d+)(?:\.0)?\.(weight|bias)", name)
+        if not m:
+            continue
+        li = int(m.group(1))
+        n_convs = max(n_convs, li)
+        arr = t.to_numpy()
+        if m.group(2) == "weight":
+            params.setdefault(f"conv{li}", {})["w"] = _conv_to_hwio(arr)
+        else:
+            params.setdefault(f"conv{li}", {})["b"] = _f32(arr)
+    residual: List[int] = []
+    conv_out_of: Dict[str, int] = {}
+    conv_idx = 0
+    for n in model.graph.nodes:
+        if n.op_type == "Conv":
+            conv_idx += 1
+            conv_out_of[n.outputs[0]] = conv_idx
+        elif n.op_type == "Relu":
+            conv_out_of[n.outputs[0]] = conv_out_of.get(n.inputs[0], 0)
+        elif n.op_type == "Add" and len(n.inputs) == 2:
+            ids = [conv_out_of.get(i, 0) for i in n.inputs]
+            if all(ids):
+                residual.append(max(ids) - 1)  # 0-based layer index of the add
+                conv_out_of[n.outputs[0]] = max(ids)
+    exps = _gamma_exponents(model)
+    return ImportedModel(
+        kind="conv_stack",
+        params=params,
+        num_conv_layers=n_convs,
+        residual_layers=tuple(residual),
+        has_gamma=exps is not None,
+        relu_before_residual_add=True,  # the fused graphs' semantics (module doc)
+        source=path,
+    )
+
+
+def import_native(path: str, kind: str, model: Model = None) -> ImportedModel:
+    """Import a graph written by the exporter (``export.onnx_export``) into a
+    nested dict. The exporter names every initializer after the flattened
+    parameter dict (dotted keys, then '.weight'/'.bias' for convs and
+    '.a'/'.b'/'.bias'/'.slope' for activations), so the inverse collects the
+    leaves and un-flattens on dots. Wrapper constants never carry those
+    suffixes."""
+    model = model if model is not None else load_model(path)
+    flat: Dict[str, dict] = {}
+    for name, t in model.graph.initializers.items():
+        m = re.fullmatch(r"(.+)\.(weight|bias|a|b|slope)", name)
+        if not m:
+            continue
+        key, leaf = m.group(1), m.group(2)
+        arr = t.to_numpy()
+        if leaf == "weight":
+            if arr.ndim != 4:
+                continue
+            flat.setdefault(key, {})["w"] = _conv_to_hwio(arr)
+        elif leaf == "bias" and arr.ndim == 1:
+            flat.setdefault(key, {})["b"] = _f32(arr)
+        else:
+            # activation leaves are written per channel as (-1, 1, 1) or scalar
+            flat.setdefault(key, {})[leaf] = _f32(arr).reshape(-1)
+    params: Params = {}
+    for key, leaves in flat.items():
+        node = params
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaves
+    exps = _gamma_exponents(model)
+    return ImportedModel(
+        kind=kind,
+        params=params,
+        num_conv_layers=0,
+        has_gamma=exps is not None,
+        srgb_to_linear_exponent=exps[0] if exps else 2.2,
+        linear_to_srgb_exponent=exps[1] if exps else 1.0 / 2.2,
+        crop_left=_detect_crop_left(model),
+        source=path,
+    )
+
+
+def import_any(path: str) -> ImportedModel:
+    """Parse ``path`` once and import it with its family's importer
+    (:func:`artifact_kind`)."""
+    model = load_model(path)
+    kind = artifact_kind(model)
+    if kind in ("conv6", "residual_unet"):
+        return import_native(path, kind, model=model)
+    if kind == "pix_shuffle":
+        return import_pix_shuffle(path, model=model)
+    return import_conv_stack(path, model=model)

@@ -1,10 +1,15 @@
-"""Reader half of a minimal ONNX protobuf wire-format codec.
+"""Minimal self-contained ONNX protobuf wire-format codec.
 
-The port's own copy of the reader in
-``fs_uae_image_enhancer_project_tpu/export/onnx_proto.py``: just enough of the
-protobuf wire format (varint / length-delimited fields) and the ONNX message
-schema to read the shipped ``*.onnx`` artifacts (initializer weights and graph
-topology) without the ``onnx`` package. The writer waits for the export slice.
+The port's own copy of ``fs_uae_image_enhancer_project_tpu/export/onnx_proto.py``:
+just enough of the protobuf wire format (varint / length-delimited fields)
+and the ONNX message schema to read the shipped ``*.onnx`` artifacts
+(initializer weights and graph topology) and to write the export path's
+graphs (:class:`GraphBuilder`), without the ``onnx`` package. The writer
+emits the same bytes as the JAX package's for the same calls.
+
+The subset of onnx.proto3: ModelProto, GraphProto, NodeProto,
+AttributeProto, TensorProto, ValueInfoProto, TypeProto, TensorShapeProto,
+OperatorSetIdProto.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ DTYPE_TO_NUMPY = {
     UINT32: np.uint32,
     UINT64: np.uint64,
 }
+NUMPY_TO_DTYPE = {np.dtype(v): k for k, v in DTYPE_TO_NUMPY.items()}
 
 # AttributeProto.AttributeType
 ATTR_FLOAT = 1
@@ -86,6 +92,17 @@ def _repeated_varints(val, wtype: int):
         yield v
 
 
+def _write_varint(out: bytearray, value: int) -> None:
+    if value < 0:
+        value &= (1 << 64) - 1  # two's complement for negative int64
+    while True:
+        b = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return
 
 
 def _iter_fields(buf: bytes) -> Iterator[Tuple[int, int, Any]]:
@@ -110,6 +127,29 @@ def _iter_fields(buf: bytes) -> Iterator[Tuple[int, int, Any]]:
         else:
             raise ValueError(f"unsupported wire type {wtype}")
         yield fnum, wtype, val
+
+
+def _tag(out: bytearray, fnum: int, wtype: int) -> None:
+    _write_varint(out, (fnum << 3) | wtype)
+
+
+def _put_varint_field(out: bytearray, fnum: int, value: int) -> None:
+    _tag(out, fnum, 0)
+    _write_varint(out, value)
+
+
+def _put_bytes_field(out: bytearray, fnum: int, data: bytes) -> None:
+    _tag(out, fnum, 2)
+    _write_varint(out, len(data))
+    out.extend(data)
+
+
+def _put_str_field(out: bytearray, fnum: int, s: str) -> None:
+    _put_bytes_field(out, fnum, s.encode("utf-8"))
+
+
+def _zigzag_i64(v: int) -> int:
+    return v if v >= 0 else v + (1 << 64)
 
 
 # ---------------------------------------------------------------------------
@@ -376,3 +416,156 @@ def load_model(path: str) -> Model:
                 if f2 == 2:
                     m.opset = v2
     return m
+
+
+# ---------------------------------------------------------------------------
+# writers
+# ---------------------------------------------------------------------------
+
+def _ser_tensor(name: str, arr: np.ndarray) -> bytes:
+    out = bytearray()
+    for d in arr.shape:
+        _put_varint_field(out, 1, d)
+    _put_varint_field(out, 2, NUMPY_TO_DTYPE[arr.dtype])
+    _put_str_field(out, 8, name)
+    _put_bytes_field(out, 9, np.ascontiguousarray(arr).tobytes())
+    return bytes(out)
+
+
+def _ser_attribute(name: str, value: Any) -> bytes:
+    out = bytearray()
+    _put_str_field(out, 1, name)
+    if isinstance(value, bool):
+        _put_varint_field(out, 3, int(value))
+        _put_varint_field(out, 20, ATTR_INT)
+    elif isinstance(value, int):
+        _put_varint_field(out, 3, _zigzag_i64(value))
+        _put_varint_field(out, 20, ATTR_INT)
+    elif isinstance(value, float):
+        _tag(out, 2, 5)
+        out.extend(struct.pack("<f", value))
+        _put_varint_field(out, 20, ATTR_FLOAT)
+    elif isinstance(value, str):
+        _put_bytes_field(out, 4, value.encode("utf-8"))
+        _put_varint_field(out, 20, ATTR_STRING)
+    elif isinstance(value, np.ndarray):
+        _put_bytes_field(out, 5, _ser_tensor(name + "_value", value))
+        _put_varint_field(out, 20, ATTR_TENSOR)
+    elif isinstance(value, (list, tuple)):
+        if all(isinstance(v, int) for v in value):
+            packed = bytearray()
+            for v in value:
+                _write_varint(packed, _zigzag_i64(v))
+            _put_bytes_field(out, 8, bytes(packed))
+            _put_varint_field(out, 20, ATTR_INTS)
+        elif all(isinstance(v, float) for v in value):
+            _put_bytes_field(
+                out, 7, np.array(value, dtype=np.float32).tobytes()
+            )
+            _put_varint_field(out, 20, ATTR_FLOATS)
+        else:
+            raise TypeError(f"unsupported attribute list {value!r}")
+    else:
+        raise TypeError(f"unsupported attribute {value!r}")
+    return bytes(out)
+
+
+def _ser_node(
+    op_type: str,
+    inputs: List[str],
+    outputs: List[str],
+    name: str = "",
+    **attrs: Any,
+) -> bytes:
+    out = bytearray()
+    for s in inputs:
+        _put_str_field(out, 1, s)
+    for s in outputs:
+        _put_str_field(out, 2, s)
+    if name:
+        _put_str_field(out, 3, name)
+    _put_str_field(out, 4, op_type)
+    for k, v in attrs.items():
+        _put_bytes_field(out, 5, _ser_attribute(k, v))
+    return bytes(out)
+
+
+def _ser_value_info(name: str, elem_type: int, shape: Tuple[Any, ...]) -> bytes:
+    shape_buf = bytearray()
+    for d in shape:
+        dim = bytearray()
+        if isinstance(d, str):
+            _put_str_field(dim, 2, d)
+        else:
+            _put_varint_field(dim, 1, int(d))
+        _put_bytes_field(shape_buf, 1, bytes(dim))
+    tensor_type = bytearray()
+    _put_varint_field(tensor_type, 1, elem_type)
+    _put_bytes_field(tensor_type, 2, bytes(shape_buf))
+    type_proto = bytearray()
+    _put_bytes_field(type_proto, 1, bytes(tensor_type))
+    out = bytearray()
+    _put_str_field(out, 1, name)
+    _put_bytes_field(out, 2, bytes(type_proto))
+    return bytes(out)
+
+
+class GraphBuilder:
+    """Imperative ONNX graph builder for the export path."""
+
+    def __init__(self, name: str = "graph"):
+        self.name = name
+        self._nodes: List[bytes] = []
+        self._initializers: List[bytes] = []
+        self._inputs: List[bytes] = []
+        self._outputs: List[bytes] = []
+        self._counter = 0
+
+    def fresh(self, hint: str = "t") -> str:
+        self._counter += 1
+        return f"{hint}_{self._counter}"
+
+    def add_input(self, name: str, elem_type: int, shape) -> str:
+        self._inputs.append(_ser_value_info(name, elem_type, tuple(shape)))
+        return name
+
+    def add_output(self, name: str, elem_type: int, shape) -> str:
+        self._outputs.append(_ser_value_info(name, elem_type, tuple(shape)))
+        return name
+
+    def add_initializer(self, name: str, arr: np.ndarray) -> str:
+        self._initializers.append(_ser_tensor(name, np.asarray(arr)))
+        return name
+
+    def add_node(self, op_type: str, inputs, outputs=None, name: str = "", **attrs) -> List[str]:
+        if outputs is None:
+            outputs = [self.fresh(op_type.lower())]
+        self._nodes.append(_ser_node(op_type, list(inputs), list(outputs), name, **attrs))
+        return list(outputs)
+
+    def serialize_graph(self) -> bytes:
+        out = bytearray()
+        for nb in self._nodes:
+            _put_bytes_field(out, 1, nb)
+        _put_str_field(out, 2, self.name)
+        for ib in self._initializers:
+            _put_bytes_field(out, 5, ib)
+        for vb in self._inputs:
+            _put_bytes_field(out, 11, vb)
+        for vb in self._outputs:
+            _put_bytes_field(out, 12, vb)
+        return bytes(out)
+
+    def serialize_model(
+        self, opset: int = 13, producer: str = "fs_uae_image_enhancer_project_tpu"
+    ) -> bytes:
+        # the producer is the project's name, the same in both packages' files
+        out = bytearray()
+        _put_varint_field(out, 1, 8)  # ir_version 8
+        _put_str_field(out, 2, producer)
+        _put_bytes_field(out, 7, self.serialize_graph())
+        opset_buf = bytearray()
+        _put_str_field(opset_buf, 1, "")
+        _put_varint_field(opset_buf, 2, opset)
+        _put_bytes_field(out, 8, bytes(opset_buf))
+        return bytes(out)

@@ -4,8 +4,8 @@
 the JAX package's registry: a frozen config, ``init(generator=None,
 device=None) -> params``, ``apply(params, x) -> y`` (NHWC float, linear light
 where ``linear_io``) and the model's training criterion spec (resolved by
-``losses.build_criterion``). pix_shuffle, conv3 and conv5 are ported; conv6
-and residual_unet raise ``NotImplementedError``.
+``losses.build_criterion``), for every family of the JAX package:
+pix_shuffle, conv3, conv5, conv6 (lightweight only) and residual_unet.
 """
 from __future__ import annotations
 
@@ -13,8 +13,18 @@ import dataclasses
 from functools import partial
 from typing import Any, Callable, Dict, NamedTuple
 
-from . import conv_stack, pix_shuffle
-from .configs import ActSpec, ConvLayerSpec, ConvStackConfig, PixShuffleConfig, act  # noqa: F401
+from . import blocks, conv6, conv_stack, pix_shuffle, residual_unet  # noqa: F401
+from .configs import (  # noqa: F401
+    ActSpec,
+    Conv6Config,
+    ConvLayerSpec,
+    ConvStackConfig,
+    PixShuffleConfig,
+    ResidualUNetConfig,
+    act,
+    config_from_json,
+    config_to_json,
+)
 
 MODEL_NAMES = ("pix_shuffle", "conv3", "conv5", "conv6", "residual_unet")
 
@@ -69,6 +79,8 @@ def get_model(name: str, variant: str = "lightweight") -> ModelDef:
         raise ValueError(f"Unknown variant {variant!r} (lightweight|heavyweight)")
     if variant == "heavy":
         variant = "heavyweight"
+    if name == "conv6" and variant == "heavyweight":
+        raise ValueError("conv6 has no heavyweight variant")
     if name == "pix_shuffle":
         cfg = (pix_shuffle.lightweight_config() if variant == "lightweight"
                else pix_shuffle.heavyweight_config())
@@ -86,10 +98,22 @@ def get_model(name: str, variant: str = "lightweight") -> ModelDef:
             partial(conv_stack.apply, cfg=cfg),
             _CONV3_LOSS if name == "conv3" else _CONV5_LOSS, linear_io=False,
         )
-    if name in MODEL_NAMES:
-        raise NotImplementedError(
-            f"model family {name!r} is not ported yet (ROADMAP.md, section 1, "
-            "item 8: the other model families)"
+    if name == "conv6":
+        cfg = conv6.default_config()
+        return ModelDef(
+            name, variant, cfg,
+            partial(conv6.init, cfg),
+            partial(conv6.apply, cfg=cfg),
+            _PIX_SHUFFLE_LOSS, linear_io=True,
+        )
+    if name == "residual_unet":
+        cfg = (residual_unet.lightweight_config() if variant == "lightweight"
+               else residual_unet.heavyweight_config())
+        return ModelDef(
+            name, variant, cfg,
+            partial(residual_unet.init, cfg),
+            partial(residual_unet.apply, cfg=cfg),
+            _PIX_SHUFFLE_LOSS, linear_io=True,
         )
     raise ValueError(f"Unknown model '{name}'. Known: {MODEL_NAMES}")
 

@@ -5,8 +5,9 @@ Port of ``fs_uae_image_enhancer_project_tpu/models/conv_stack.py``: conv3
 at layers 2 and 4 before the activation, Sigmoid output). Both train on
 float sRGB and deploy fused (each BN folded into its conv, :func:`fuse`).
 NHWC tensors; parameters in the JAX package's nested dict with HWIO convs.
-
-Their ONNX importer and enhance kind are not ported yet.
+The deployed graphs (``artifacts/model_conv{3,5}*/``) run through
+:func:`apply_fused` in the sRGB domain (``export.enhance``); conv3's own
+deployment contract is :func:`apply_uint8_rgba`.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from ..ops.conv import (
     fuse_conv_bn,
     init_batchnorm,
     init_conv,
+    no_tf32,
 )
 from .configs import ConvStackConfig
 
@@ -74,22 +76,24 @@ def _act(x: torch.Tensor, cfg: ConvStackConfig, is_last: bool) -> torch.Tensor:
 def apply(params: Params, x: torch.Tensor, cfg: ConvStackConfig, *, train: bool = False):
     """Float RGB forward, NHWC in and out. With ``train`` it also returns the
     updated batchnorm stats, ``(y, {bn_key: stats})`` (the functional form of
-    torch's in-place running-stat update)."""
+    torch's in-place running-stat update). fp32 is fp32 on a card (TF32
+    off)."""
     new_stats: Params = {}
     n_layers = len(cfg.channels)
-    for i in range(n_layers):
-        li = i + 1
-        skip = x if i in cfg.residual_layers else None
-        x = conv2d(params[f"conv{li}"], x)
-        bn_key = f"bn{li}"
-        if bn_key in params:
-            if train:
-                x, new_stats[bn_key] = batchnorm_train(params[bn_key], x)
-            else:
-                x = batchnorm_inference(params[bn_key], x)
-        if skip is not None:
-            x = skip + x  # residual add before the activation
-        x = _act(x, cfg, i == n_layers - 1)
+    with no_tf32():
+        for i in range(n_layers):
+            li = i + 1
+            skip = x if i in cfg.residual_layers else None
+            x = conv2d(params[f"conv{li}"], x)
+            bn_key = f"bn{li}"
+            if bn_key in params:
+                if train:
+                    x, new_stats[bn_key] = batchnorm_train(params[bn_key], x)
+                else:
+                    x = batchnorm_inference(params[bn_key], x)
+            if skip is not None:
+                x = skip + x  # residual add before the activation
+            x = _act(x, cfg, i == n_layers - 1)
     if train:
         return x, new_stats
     return x
@@ -112,18 +116,38 @@ def apply_fused(params: Params, x: torch.Tensor, cfg: ConvStackConfig, *,
 
     ``relu_before_residual_add=True`` is the reference's deployed conv5: its
     fused conv+bn+relu units apply ReLU before the skip add (the shipped ONNX
-    graphs are Conv->Relu->Add), where training adds and then activates."""
+    graphs are Conv->Relu->Add), where training adds and then activates.
+    fp32 is fp32 on a card (TF32 off)."""
     n_layers = len(cfg.channels)
-    for i in range(n_layers):
-        skip = x if i in cfg.residual_layers else None
-        x = conv2d(params[f"conv{i + 1}"], x)
-        is_last = i == n_layers - 1
-        if relu_before_residual_add:
-            x = _act(x, cfg, is_last)
-            if skip is not None:
-                x = skip + x
-        else:
-            if skip is not None:
-                x = skip + x
-            x = _act(x, cfg, is_last)
+    with no_tf32():
+        for i in range(n_layers):
+            skip = x if i in cfg.residual_layers else None
+            x = conv2d(params[f"conv{i + 1}"], x)
+            is_last = i == n_layers - 1
+            if relu_before_residual_add:
+                x = _act(x, cfg, is_last)
+                if skip is not None:
+                    x = skip + x
+            else:
+                if skip is not None:
+                    x = skip + x
+                x = _act(x, cfg, is_last)
     return x
+
+
+def apply_uint8_rgba(params: Params, x_rgba: torch.Tensor, cfg: ConvStackConfig) -> torch.Tensor:
+    """conv3's deployment forward contract: uint8 RGBA NHWC in, float RGBA
+    NHWC out scaled to [0, 255] with alpha 255. Raises on any other input,
+    and on unfused parameters (``bn*`` entries): :func:`apply_fused` would
+    run the bias-free convs with no batchnorm and give wrong pixels."""
+    if x_rgba.dtype != torch.uint8 or x_rgba.shape[-1] != 4:
+        raise ValueError("Input tensor must be uint8 with 4 channels (RGBA)")
+    if any(k.startswith("bn") for k in params):
+        raise ValueError(
+            "apply_uint8_rgba expects FUSED deployment params; call "
+            "conv_stack.fuse(params, cfg) first (the dict still has bn* entries)"
+        )
+    rgb = x_rgba[..., :3].float() / 255.0
+    y = apply_fused(params, rgb, cfg) * 255.0
+    alpha = torch.full(y.shape[:-1] + (1,), 255.0, dtype=y.dtype, device=y.device)
+    return torch.cat([y, alpha], dim=-1)

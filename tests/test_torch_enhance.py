@@ -55,13 +55,32 @@ def test_onnx_import_equals_jax_import():
 
 
 def test_artifact_kind_routes_other_families_to_later_slices():
+    """Every shipped graph routes to its family's importer, as the JAX
+    package's ``import_any`` routes it, and ``enhance_from_onnx`` builds
+    its enhance fn on that family's model (the heavy pix_shuffle graphs,
+    which JAX refuses too, aside)."""
+    import glob
+
     from fs_uae_image_enhancer_project_tpu_torch.export.onnx_proto import load_model
 
-    assert tor_import.artifact_kind(load_model(ONNX)) == "pix_shuffle"
-    conv3 = os.path.join(REPO, "artifacts", "model_conv3", "conv3.onnx")
-    assert tor_import.artifact_kind(load_model(conv3)) == "conv_stack"
-    with pytest.raises(NotImplementedError):
-        tor_enhance.enhance_from_onnx(conv3, device="cpu")
+    paths = sorted(glob.glob(os.path.join(REPO, "artifacts", "model_*", "*.onnx")))
+    assert len(paths) == 11
+    kinds = {}
+    for path in paths:
+        kind = tor_import.artifact_kind(load_model(path))
+        assert kind == tor_import.import_any(path).kind == jax_import.import_any(path).kind
+        kinds[os.path.basename(path)] = kind
+        if "pix_shuffle_heavy" in path:
+            with pytest.raises(ValueError, match="lightweight"):
+                tor_enhance.enhance_from_onnx(path, device="cpu")
+            continue
+        fn = tor_enhance.enhance_from_onnx(path, device="cpu")
+        out = fn(_frames((1, 16, 32, 4), seed=len(kinds)))
+        assert out.shape == (1, 16, 32, 4) and out.dtype == torch.uint8
+    assert kinds["conv3.onnx"] == kinds["conv5_heavy.onnx"] == "conv_stack"
+    assert kinds["conv6.onnx"] == "conv6"
+    assert kinds["residual_unet.onnx"] == "residual_unet"
+    assert kinds["pix_shuffle.onnx"] == "pix_shuffle"
 
 
 def _both(crop_left, compute_dtype_jax, compute_dtype_torch, seed=0):

@@ -86,14 +86,17 @@ def test_interop_round_trip_is_exact():
 
 
 def test_registry_errors():
-    with pytest.raises(ValueError):
-        get_model("pix_shuffle", "medium")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        get_model("conv6")
-    with pytest.raises(NotImplementedError):
-        get_model("residual_unet")
-    with pytest.raises(ValueError):
-        get_model("nope")
+    """The JAX registry's errors, message for message: an unknown variant,
+    conv6's heavyweight (by variant and by alias) and an unknown name."""
+    for args in (("pix_shuffle", "medium"), ("conv6", "heavyweight"), ("conv6_heavy",),
+                 ("nope",)):
+        with pytest.raises(ValueError) as want:
+            jax_model(*args)
+        with pytest.raises(ValueError) as got:
+            get_model(*args)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="no heavyweight"):
+        get_model("conv6", "heavy")
 
 
 def test_cuda_forward_rejects_heavyweight_config(monkeypatch):
