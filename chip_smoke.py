@@ -39,13 +39,29 @@ Phases, each printing one JSON line with its wall time:
               shipped file's bytes, and its frames equal the shipped
               graph's; the U-Net served at depth 2, byte-equal to the direct
               enhance
-10. datagen   the port's dataset generator (slice 2's main path) on two seeded
+10. parallel_tools  slice 8's paths with the shipped pix_shuffle graph in one
+              process, K1's launches counted on each: measure_stream_throughput
+              at depth 1 and 2 over 200 seeded frames (host arrays in and
+              out; K1 once a frame, warm-up included) beside the enhance's
+              device-frame ms; enhance_directory over 8 seeded 576x752 PNGs
+              at batch_size 4 on the 1x1 mesh (byte-equal to the per-frame
+              enhance, K1 twice); the frame server as a child process at
+              depth 2 with --stats, waited for with utils.subproc's
+              wait_for_line, replayed by sidecar_replay --loops 2
+              --shutdown (every saved PNG byte-equal to the per-frame
+              enhance); served latency: a server child at depth 0 and one
+              at depth 2, each replayed over 320 frames (40 loops), their
+              --stats p50/p90/p99, byte-equal as above; models.benchmark for
+              pix_shuffle and conv3 (1 s each); the spatial split at sp 2
+              and 4 as a loop over slabs, within K1's 6e-3 of the unsplit
+              K1 frame (K1 once a slab)
+11. datagen   the port's dataset generator (slice 2's main path) on two seeded
               1504x1152 images, 376x288 lores crops, kmeans_torch palettes 64
               and 256, five dithers, device_batch 16, counters from 0; then
               its rerun (nothing to do), k-means on the card against the CPU,
               and the per-crop route against the batched one, PNG for PNG,
               with one worker and with two (spawned, a CUDA context each)
-11. train     training (slice 6's main path) on the datagen phase's tree
+12. train     training (slice 6's main path) on the datagen phase's tree
               through the trainer CLI: the lightweight pix_shuffle with its
               own criterion (VGG 0.007 on the committed self-trained asset,
               Charbonnier, the HF term), 376x288 uint8 batches of 1,
@@ -62,11 +78,11 @@ Phases, each printing one JSON line with its wall time:
               samples/s, ms a step, the loader-wait share and peak memory
               at accumulation 16, bf16, VGG on and off (one warm-up step,
               32 micro-batches)
-12. kernel_bench  the two kernel benches (slice 3's main path), about a
+13. kernel_bench  the two kernel benches (slice 3's main path), about a
               second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-13. timing    K1's and K2's device time a call (median, min and max of 3
+14. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -82,7 +98,7 @@ Phases, each printing one JSON line with its wall time:
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-14. kernels   every kernel launched, held against its plain version
+15. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -145,6 +161,10 @@ FAMILIES = ("conv3", "conv3_heavy", "conv5", "conv5_heavy", "conv6", "residual_u
 FAMILY_WINDOW = 160
 FAMILY_MAX_LEVELS = 1
 SERVE_DEPTH = 2
+# slice 8: frames a stream-throughput reading takes, and at least as many
+# frames a served-latency reading replays
+STREAM_FRAMES = 200
+LATENCY_FRAMES = 320
 
 _phase = "start"
 
@@ -1164,6 +1184,200 @@ def check_families(rec: dict) -> None:
           f"the families' path launched a kernel of the repo: {rec['launches']}")
 
 
+def _bench_numbers(text: str) -> dict:
+    """``models.benchmark``'s printed ms a step and fps."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("Mean step:"):
+            out["ms"] = float(line.split()[2])
+        elif line.startswith("Average FPS:"):
+            out["fps"] = float(line.split()[2])
+    return out
+
+
+def parallel_tools(dev, frame_hw=(576, 752), stream_frames: int = STREAM_FRAMES,
+                   dir_frames: int = 8, dir_batch: int = 4, bench_duration: float = 1.0,
+                   bench_crop=None, latency_frames: int = LATENCY_FRAMES) -> dict:
+    """Slice 8's paths on ``dev`` with the shipped pix_shuffle graph, one
+    process (the 1x1 mesh), K1's launches counted on each:
+
+    - ``measure_stream_throughput`` at depth 1 and 2 over ``stream_frames``
+      seeded frames (host arrays through the pinned slots and back), beside
+      the device-frame ms of the same enhance;
+    - ``enhance_directory`` over ``dir_frames`` seeded PNGs at ``batch_size``
+      ``dir_batch``, each output against the per-frame enhance;
+    - the frame server as a child process (``--depth 2 --stats``), waited for
+      with ``utils.subproc.wait_for_line``, and ``sidecar_replay.main`` with
+      ``--loops 2 --shutdown`` over the same PNGs: every saved PNG against
+      the per-frame enhance;
+    - served latency: a server child at depth 0 and one at depth 2, each
+      replayed over at least ``latency_frames`` frames, the server's
+      ``--stats`` p50/p90/p99 (at depth 0 the server's own time a frame; at
+      depth 2 a frame waits for the client's second next frame, so there it
+      is the client's pace), every saved PNG checked as above;
+    - ``models.benchmark.main`` for pix_shuffle and conv3;
+    - the spatial split at sp 2 and 4 as a loop over slabs in this process
+      against the unsplit forward of one linear bf16 frame."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from fs_uae_image_enhancer_project_tpu_torch.export.enhance import enhance_from_onnx
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_import import import_pix_shuffle
+    from fs_uae_image_enhancer_project_tpu_torch.export.streaming import (
+        measure_stream_throughput)
+    from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
+    from fs_uae_image_enhancer_project_tpu_torch.models import benchmark, get_model
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.parallel import make_mesh, spatial
+    from fs_uae_image_enhancer_project_tpu_torch.parallel.inference import enhance_directory
+    from fs_uae_image_enhancer_project_tpu_torch.runtime import sidecar_replay
+    from fs_uae_image_enhancer_project_tpu_torch.utils.subproc import wait_for_line
+
+    h, w = frame_hw
+    enhance = enhance_from_onnx(ONNX, device=dev)
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 256, (dir_frames, h, w, 4), dtype=np.uint8)
+    direct = [enhance(frames[i:i + 1]).cpu().numpy()[0] for i in range(dir_frames)]
+    rec: dict = {"inputs": dict(stream_frames=stream_frames, dir_frames=dir_frames,
+                                dir_batch=dir_batch, latency_frames=latency_frames),
+                 "launches": {}}
+
+    def counted(name, fn):
+        before = fs.fused_stack.launches
+        out = fn()
+        rec["launches"][name] = fs.fused_stack.launches - before
+        return out
+
+    frame_dev = torch.from_numpy(frames[:1]).to(dev)
+    rec["enhance_device_frame_ms"] = median_ms(lambda: enhance(frame_dev))
+    rec["stream"] = [counted(f"stream_depth{d}", lambda d=d: measure_stream_throughput(
+        enhance, depth=d, n_frames=stream_frames, frame_shape=(h, w, 4), device=dev))
+        for d in (1, 2)]
+
+    def equal_to_direct(out_dir, suffix=".png"):
+        got = []
+        for i in range(dir_frames):
+            with Image.open(os.path.join(out_dir, f"f{i}{suffix}")) as im:
+                got.append(np.array_equal(np.asarray(im), direct[i]))
+        return got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        for i, f in enumerate(frames):
+            Image.fromarray(f, mode="RGBA").save(os.path.join(src, f"f{i}.png"))
+        out = os.path.join(tmp, "out")
+        n = counted("enhance_directory", lambda: enhance_directory(
+            enhance, src, out, batch_size=dir_batch, mesh=make_mesh(device=dev), verbose=0))
+        rec["enhance_directory"] = dict(frames=n, batch_size=dir_batch,
+                                        byte_equal=all(equal_to_direct(out)))
+
+        def serve_and_replay(depth: int, loops: int, tag: str) -> dict:
+            """A server child at ``depth`` (``--stats``), waited for with
+            wait_for_line, replayed ``loops`` times over the PNGs with
+            ``--shutdown``; every saved PNG against the per-frame enhance."""
+            sock, stats = os.path.join(tmp, f"{tag}.sock"), os.path.join(tmp, f"{tag}.json")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "fs_uae_image_enhancer_project_tpu_torch.runtime.sidecar",
+                 "--socket", sock, "--device", dev.type, "--depth", str(depth),
+                 "--height", str(h), "--width", str(w), "--stats", stats, "--quiet"],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            try:
+                ready, lines = wait_for_line(proc, "SIDECAR_READY", timeout=180)
+                check(ready, f"the server child did not come up: {lines[-5:]}")
+                replay_out = os.path.join(tmp, tag)
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = sidecar_replay.main(["--socket", sock, "--frames", src, "--out",
+                                              replay_out, "--loops", str(loops), "--shutdown"])
+                server_rc = proc.wait(timeout=60)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            with open(stats) as f:
+                lat = json.load(f)
+            return dict(
+                rc=rc, server_rc=server_rc, depth=depth, loops=loops,
+                client=json.loads(next(line for line in buf.getvalue().splitlines()
+                                       if line.startswith("{"))),
+                byte_equal=all(equal_to_direct(replay_out)),
+                server_stats={k: lat[k] for k in ("frames", "depth", "p50_ms", "p90_ms",
+                                                  "p99_ms", "mean_ms", "max_ms")})
+
+        # the pairing check at --loops 2; then the latency readings, a few
+        # hundred frames a depth, so that p99 is not the slowest frame
+        rec["replay"] = serve_and_replay(SERVE_DEPTH, 2, "replay")
+        loops = -(-latency_frames // dir_frames)
+        rec["latency"] = [serve_and_replay(d, loops, f"latency{d}") for d in (0, SERVE_DEPTH)]
+
+    crop = [] if bench_crop is None else ["--crop_size", str(bench_crop[0]), str(bench_crop[1])]
+    rec["benchmark"] = {}
+    for model in ("pix_shuffle", "conv3"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = counted(f"benchmark_{model}", lambda model=model: benchmark.main(
+                ["--model_type", model, "--duration", str(bench_duration),
+                 "--device", dev.type, *crop]))
+        rec["benchmark"][model] = dict(rc=rc, **_bench_numbers(buf.getvalue()))
+
+    m = get_model("pix_shuffle")
+    params = params_from_jax(import_pix_shuffle(ONNX).params, device=dev)
+    x = ((torch.from_numpy(frames[:1, :, :, :3]).to(dev).float() / 255.0) ** 2.2
+         ).to(torch.bfloat16)
+    whole = m.apply(params, x).float()
+    halo = spatial.model_halo(m)
+    rec["split"] = []
+    for sp in (2, 4):
+        got = counted(f"split_sp{sp}", lambda sp=sp: spatial.apply_split(
+            m.apply, params, x, sp=sp, halo=halo)).float()
+        rec["split"].append(dict(sp=sp, halo_rows=halo.rows,
+                                 max_abs=float((got - whole).abs().max())))
+    return rec
+
+
+def check_parallel_tools(rec: dict, dev) -> None:
+    """K1's launches are counted on the card only (the CPU takes its plain
+    version, which counts nothing)."""
+    on_card = dev.type == "cuda"
+    stream_frames, dir_frames, dir_batch = (rec["inputs"][k] for k in (
+        "stream_frames", "dir_frames", "dir_batch"))
+    launches = rec["launches"]
+    for s in rec["stream"]:
+        check(s["frames"] == stream_frames and s["fps_end_to_end"] > 0,
+              f"stream at depth {s['depth']}: {s}")
+        want = (stream_frames + s["depth"] + 2) if on_card else 0
+        check(launches[f"stream_depth{s['depth']}"] == want,
+              f"stream at depth {s['depth']}: K1 launched {launches}, not {want}")
+    d = rec["enhance_directory"]
+    check(d["frames"] == dir_frames and d["byte_equal"], f"enhance_directory: {d}")
+    want = -(-dir_frames // dir_batch) if on_card else 0
+    check(launches["enhance_directory"] == want,
+          f"enhance_directory launched K1 {launches['enhance_directory']} times, not {want}")
+    for r in [rec["replay"], *rec["latency"]]:
+        check(r["rc"] == 0 and r["server_rc"] == 0 and r["byte_equal"], f"replay: {r}")
+        check(r["client"]["frames"] == r["loops"] * dir_frames
+              and r["server_stats"]["frames"] == r["loops"] * dir_frames
+              and r["server_stats"]["depth"] == r["depth"], f"replay counts: {r}")
+    check([r["depth"] for r in rec["latency"]] == [0, SERVE_DEPTH]
+          and all(r["loops"] * dir_frames >= rec["inputs"]["latency_frames"]
+                  for r in rec["latency"]), f"latency readings: {rec['latency']}")
+    for model, b in rec["benchmark"].items():
+        check(b["rc"] == 0 and b.get("ms", 0) > 0 and b.get("fps", 0) > 0,
+              f"models.benchmark {model}: {b}")
+    check((launches["benchmark_pix_shuffle"] > 0) == on_card
+          and launches["benchmark_conv3"] == 0,
+          f"models.benchmark's K1 launches: {launches}")
+    for s in rec["split"]:
+        check(s["max_abs"] <= K1_MAX_ABS, f"split at sp {s['sp']}: {s['max_abs']} > {K1_MAX_ABS}")
+        check(launches[f"split_sp{s['sp']}"] == (s["sp"] if on_card else 0),
+              f"split at sp {s['sp']}: K1 launched {launches}")
+
+
 def _counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
@@ -1384,7 +1598,14 @@ def main(argv=None) -> int:
          launches=fam["launches"], max_levels=FAMILY_MAX_LEVELS, window=FAMILY_WINDOW)
     check_families(fam)
 
-    # 10. datagen: slice 2's main path, every counter from 0
+    # 10. parallel_tools: slice 8's paths, K1's launches counted on each
+    _phase = "parallel_tools"
+    t0 = time.perf_counter()
+    ptools = parallel_tools(dev)
+    emit("parallel_tools", t0, **ptools, split_tol_max_abs=K1_MAX_ABS, nvidia_smi=smi)
+    check_parallel_tools(ptools, dev)
+
+    # 11. datagen: slice 2's main path, every counter from 0
     _phase = "datagen"
     t0 = time.perf_counter()
     work = tempfile.TemporaryDirectory()
@@ -1409,7 +1630,7 @@ def main(argv=None) -> int:
     check(dg["workers2_files_differing_from_batched"] == 0,
           "the two-worker per-crop route's PNGs differ from the batched run's")
 
-    # 11. train: slice 6's main path on the datagen phase's tree, K1's counter
+    # 12. train: slice 6's main path on the datagen phase's tree, K1's counter
     # from 0 (the train steps must not launch it; validation does)
     _phase = "train"
     t0 = time.perf_counter()
@@ -1418,7 +1639,7 @@ def main(argv=None) -> int:
     emit("train", t0, **trn, nvidia_smi=smi)
     check_train(trn, dev)
 
-    # 12. kernel_bench: slice 3's main path, every counter from 0
+    # 13. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -1428,7 +1649,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 13. timing at the main paths' shapes
+    # 14. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -1495,12 +1716,13 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 14. kernels
+    # 15. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
         counterpart="ops/pallas/fused_stack.py::_stack_kernel",
         launches=launches["fused_stack"], train_validation_launches=trn["k1_launches"]["all"],
+        parallel_tools_launches=ptools["launches"],
         max_abs_err=k1_err, ms=k1_ms, kernel_ms=k1_ms,
         plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms),

@@ -21,10 +21,18 @@ What is ported, by slice:
    forward (K1 has no backward);
 7. every model family on the served path: conv6, the residual U-Net and its
    blocks (``models``), every shipped graph's import and enhance, and the
-   ONNX exporter, its numpy runner and its CLI (``export``).
+   ONNX exporter, its numpy runner and its CLI (``export``);
+8. the parallel layer on torch process groups (``parallel``: the (dp, sp)
+   mesh, the spatial split, the train step over a mesh with synchronised
+   BatchNorm statistics, sharded inference and ``enhance_directory``, the
+   gloo dry run) and the serving tools (``export.streaming.
+   measure_stream_throughput``, ``runtime.sidecar_replay``,
+   ``utils.subproc``, ``models.benchmark`` and ``models.summary``), with the
+   ground-truth tools ``datagen.prepare_groundtruth`` and
+   ``datagen.rgb444_flat``.
 
-Still to come: sharded training, ``torch.export`` for the JAX package's
-StableHLO export, NAS and tooling (ROADMAP.md).
+Still to come: ``torch.export`` for the JAX package's StableHLO export, NAS
+and tooling (ROADMAP.md).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 :func:`resolve_device` raises when a card is asked for (or implied) and

@@ -118,15 +118,27 @@ def get_model(name: str, variant: str = "lightweight") -> ModelDef:
     raise ValueError(f"Unknown model '{name}'. Known: {MODEL_NAMES}")
 
 
-def train_apply(model: ModelDef) -> Callable:
+@dataclasses.dataclass(frozen=True)
+class TrainApply:
+    """``fn(params, x, **kw)``, the forward the train step differentiates,
+    with the model it runs (the spatial split reads its receptive radius
+    from ``model``; see :func:`train_apply`)."""
+
+    model: ModelDef
+
+    def __call__(self, params, x, **kw):
+        if self.model.name == "pix_shuffle":
+            return pix_shuffle.apply_eager(params, x, self.model.config, **kw)
+        return self.model.apply(params, x, **kw)
+
+
+def train_apply(model: ModelDef) -> TrainApply:
     """The forward the train step differentiates. For pix_shuffle that is
     ``pix_shuffle.apply_eager``, never ``apply``: ``apply`` sends a bf16
     CUDA tensor to the fused-stack kernel K1, whose output carries no
     gradient (K1 has no backward, as the Pallas kernel has none). The other
     families' ``apply`` is eager already."""
-    if model.name == "pix_shuffle":
-        return partial(pix_shuffle.apply_eager, cfg=model.config)
-    return model.apply
+    return TrainApply(model)
 
 
 def count_params(params) -> int:

@@ -73,11 +73,13 @@ def _act(x: torch.Tensor, cfg: ConvStackConfig, is_last: bool) -> torch.Tensor:
     return x
 
 
-def apply(params: Params, x: torch.Tensor, cfg: ConvStackConfig, *, train: bool = False):
+def apply(params: Params, x: torch.Tensor, cfg: ConvStackConfig, *, train: bool = False,
+          bn_group=None):
     """Float RGB forward, NHWC in and out. With ``train`` it also returns the
     updated batchnorm stats, ``(y, {bn_key: stats})`` (the functional form of
-    torch's in-place running-stat update). fp32 is fp32 on a card (TF32
-    off)."""
+    torch's in-place running-stat update); ``bn_group`` takes the batch
+    statistics over that process group's ranks (data parallelism,
+    ``ops.conv.batchnorm_train``). fp32 is fp32 on a card (TF32 off)."""
     new_stats: Params = {}
     n_layers = len(cfg.channels)
     with no_tf32():
@@ -88,7 +90,8 @@ def apply(params: Params, x: torch.Tensor, cfg: ConvStackConfig, *, train: bool 
             bn_key = f"bn{li}"
             if bn_key in params:
                 if train:
-                    x, new_stats[bn_key] = batchnorm_train(params[bn_key], x)
+                    x, new_stats[bn_key] = batchnorm_train(params[bn_key], x,
+                                                           group=bn_group)
                 else:
                     x = batchnorm_inference(params[bn_key], x)
             if skip is not None:

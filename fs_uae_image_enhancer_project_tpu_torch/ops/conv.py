@@ -2,7 +2,8 @@
 
 Port of ``fs_uae_image_enhancer_project_tpu/ops/conv.py``: ``conv2d``,
 ``init_conv``, the depthwise conv of the Laplacian loss, batchnorm in
-inference and training mode, and the conv-BN fold. Parameters are
+inference and training mode (with batch statistics synchronised over a
+process group under data parallelism), and the conv-BN fold. Parameters are
 ``{"w": (kh, kw, cin, cout) HWIO, "b": (cout,)}`` in fp32, tensors are NHWC
 at the public functions, and the compute dtype is
 the input's (weights are cast to match). Init mirrors torch.nn.Conv2d's
@@ -19,6 +20,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 Params = Dict[str, torch.Tensor]
@@ -116,18 +118,47 @@ def batchnorm_inference(params: Params, x: torch.Tensor, eps: float = 1e-5) -> t
     return x * scale.to(x.dtype) + shift.to(x.dtype)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group. Every rank's loss depends on the sum, so the
+    gradient of a rank's input is the group's sum of the incoming gradients."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
+
+
 def batchnorm_train(params: Params, x: torch.Tensor, momentum: float = 0.1,
-                    eps: float = 1e-5):
+                    eps: float = 1e-5, group=None):
     """Training-mode batchnorm: ``(y, updated stats)``.
 
     Batch statistics over (N, H, W) in fp32; the running stats follow
     torch's ``running = (1 - momentum) * running + momentum * batch`` with
     the unbiased variance. The new stats carry no gradient.
+
+    With a process ``group`` (the data-parallel ranks, each with an equal
+    shard of the batch) the statistics are the whole batch's, as the JAX
+    package's are under GSPMD: the per-channel sum, then the sum of squared
+    deviations from the global mean, are all-reduced over the group
+    (differentiably), and ``n`` counts every rank's rows.
     """
     xf = x.float()
-    mean = xf.mean(dim=(0, 1, 2))
-    var = xf.var(dim=(0, 1, 2), unbiased=False)
     n = x.shape[0] * x.shape[1] * x.shape[2]
+    if group is None:
+        mean = xf.mean(dim=(0, 1, 2))
+        var = xf.var(dim=(0, 1, 2), unbiased=False)
+    else:
+        n *= dist.get_world_size(group)
+        mean = _AllReduceSum.apply(xf.sum(dim=(0, 1, 2)), group) / n
+        var = _AllReduceSum.apply(((xf - mean) ** 2).sum(dim=(0, 1, 2)), group) / n
     y = ((xf - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]).to(x.dtype)
     mean, var = mean.detach(), var.detach()
     unbiased = var * (n / max(n - 1, 1))

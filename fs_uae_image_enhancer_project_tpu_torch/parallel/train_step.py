@@ -1,8 +1,7 @@
-"""The training step on one card.
+"""The training step, on one card or over a (dp, sp) mesh of processes.
 
-Port of the single-device half of
-``fs_uae_image_enhancer_project_tpu/parallel/train_step.py``: forward in the
-compute dtype, the loss in fp32, backward, gradient accumulation over
+Port of ``fs_uae_image_enhancer_project_tpu/parallel/train_step.py``: forward
+in the compute dtype, the loss in fp32, backward, gradient accumulation over
 micro-batches and the optimizer step.
 
 - The step loops over the micro-batch axis: ``backward`` adds each
@@ -21,8 +20,26 @@ micro-batches and the optimizer step.
 - Batchnorm models keep their running stats in the state's ``buffers``,
   outside the optimizer.
 
-The multi-card half (data and spatial sharding) is not ported yet: a
-``mesh`` raises ``NotImplementedError``.
+Under a mesh (``parallel.mesh.make_mesh``) each rank takes its block of the
+global batch (``accum_batch_sharding``: batch over dp, height over sp) and
+the step gives the JAX step's result on the global batch, on every rank:
+
+- dp: after the accumulation loop the gradients are all-reduced (a sum over
+  every rank of the mesh) and divided by dp. Each rank's loss is a mean over
+  its equal shard, so that is the gradient of the global mean. A BatchNorm
+  model takes its batch statistics over the dp group
+  (``ops.conv.batchnorm_train``), as GSPMD makes JAX's global.
+- sp: the sp group all-gathers its row blocks of both batches (the input
+  then stands for every slab's halo), each rank runs the model on its slab
+  plus halo (``parallel/spatial.py``, the halo from ``spatial.model_halo``),
+  and the output rows are all-gathered back to whole frames. The loss (VGG
+  included) runs unsharded on each sp rank, on the same frames; only the
+  model's activations are split. The gather's backward hands each rank its
+  own rows of the gradient, and the world all-reduce above sums the slabs'
+  parameter gradients. A BatchNorm model with sp > 1 raises
+  ``NotImplementedError`` (its statistics over halo'd slabs need a masked
+  synchronised BatchNorm).
+- the returned loss is the global mean, on every rank.
 """
 from __future__ import annotations
 
@@ -31,6 +48,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.conv import no_tf32
+from . import spatial
+from .mesh import all_reduce_
 
 
 class TrainState(NamedTuple):
@@ -126,32 +145,50 @@ def make_train_step(
     """Build ``train_step(state, lr_batch, hr_batch) -> (state, loss)``.
 
     Batches are (micro, per_micro, H, W, C): the leading axis is the
-    gradient accumulation. ``input_transform`` (e.g.
+    gradient accumulation; under a ``mesh`` they are this rank's block
+    (``parallel.mesh.accum_batch_sharding``). ``input_transform`` (e.g.
     ``data.dataset.batch_transform`` for uint8 batches) runs per micro-batch
     on the device. ``model_apply`` must be differentiable: for pix_shuffle it
-    is ``models.train_apply(model)``, the eager forward. The returned loss is
-    the mean over micro-batches, a device tensor (no sync with the host).
-    The state's parameters and optimizer are updated in place; the returned
-    state has the step count and the batchnorm stats of this step.
+    is ``models.train_apply(model)``, the eager forward; when the mesh's sp
+    is above 1 it must be, since the split's halo is that model's receptive
+    radius (``parallel.spatial.model_halo``).
+    The returned loss is the mean over micro-batches (and over the mesh), a
+    device tensor (no sync with the host). The state's parameters and
+    optimizer are updated in place; the returned state has the step count
+    and the batchnorm stats of this step.
     """
-    if mesh is not None:
+    split = mesh is not None and mesh.sp > 1
+    if split and has_batchnorm:
         raise NotImplementedError(
-            "sharded training (a mesh) is not ported yet: ROADMAP.md, section 1, "
-            "item 7 (parallel/); the port trains on one card")
+            "a BatchNorm model with sp > 1 needs a masked synchronised BatchNorm "
+            "over the halo'd slabs (ROADMAP.md, section 1); train it with sp = 1")
+    if split and not hasattr(model_apply, "model"):
+        raise ValueError("a mesh with sp > 1 needs models.train_apply(model), whose "
+                         "model gives the split's halo")
+    halo = spatial.model_halo(model_apply.model) if split else None
+    bn_kw = {}
+    if has_batchnorm and mesh is not None and mesh.dp_group is not None:
+        bn_kw["bn_group"] = mesh.dp_group
     if input_transform is None:
         input_transform = lambda x: x  # noqa: E731
 
+    def forward(params, x):
+        if has_batchnorm:
+            return model_apply(params, x, train=True, **bn_kw)
+        if split:
+            y = spatial.apply_slab(model_apply, params, x, sp=mesh.sp, index=mesh.sp_index,
+                                   halo=halo)
+            return spatial.gather_rows(y.float(), mesh), {}
+        return model_apply(params, x), {}
+
     def loss_fn(params, lr_mb, hr_mb):
+        if split:  # whole frames of this dp shard on every rank of the sp group
+            lr_mb, hr_mb = spatial.gather_rows(lr_mb, mesh), spatial.gather_rows(hr_mb, mesh)
         x = input_transform(lr_mb).to(compute_dtype)
         hr_mb = input_transform(hr_mb)
-        if has_batchnorm:
-            y, bn_updates = model_apply(params, x, train=True)
-            # only the running stats: scale and bias are trainable
-            bn_updates = {k: {"mean": v["mean"], "var": v["var"]}
-                          for k, v in bn_updates.items()}
-        else:
-            y = model_apply(params, x)
-            bn_updates = {}
+        y, bn_updates = forward(params, x)
+        # only the running stats: scale and bias are trainable
+        bn_updates = {k: {"mean": v["mean"], "var": v["var"]} for k, v in bn_updates.items()}
         return criterion(y.float(), hr_mb.float()), bn_updates
 
     def train_step(state: TrainState, lr_batch, hr_batch):
@@ -173,6 +210,12 @@ def make_train_step(
             if p.grad is None:  # a parameter the forward did not reach
                 p.grad = torch.zeros_like(p)
             p.grad.div_(n_micro)
+        if mesh is not None and mesh.world_group is not None:
+            # the slabs' gradients add up to their frame's; the dp shards'
+            # sum over dp is the global batch's mean
+            for p in tensors:
+                all_reduce_(p.grad, mesh.world_group).div_(mesh.dp)
+            all_reduce_(loss_sum, mesh.world_group).div_(mesh.size)
         state.optimizer.step()
         state.scheduler.step()
         return state._replace(step=state.step + 1, buffers=buffers), loss_sum / n_micro

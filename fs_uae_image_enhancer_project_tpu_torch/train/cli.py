@@ -5,8 +5,10 @@
         --epochs 50 --train_samples 50000 --crop_size 376 288
 
 Trains on one card (``--device cuda``, the default) or on the CPU
-(``--device cpu``). ``--n_devices`` or ``--spatial`` above 1 exit 1: sharded
-training is not ported yet.
+(``--device cpu``). ``--n_devices`` or ``--spatial`` above 1 exit 1: one card
+cannot hold an ``nccl`` group of more than one rank, and the CLI has no
+multi-process launcher yet. The sharded train step runs in ``gloo``
+processes on the CPU (``parallel.dryrun``, ``parallel.mesh.spawn_ranks``).
 """
 from __future__ import annotations
 
@@ -44,9 +46,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--inference_always", action="store_true")
     ap.add_argument("--learning_rate", type=float, default=0.001)
     ap.add_argument("--n_devices", type=int, default=1,
-                    help="devices in the training mesh; the port trains on 1")
+                    help="devices in the training mesh; the CLI trains on 1")
     ap.add_argument("--spatial", type=int, default=1,
-                    help="spatial mesh axis size; the port trains on 1")
+                    help="spatial mesh axis size; the CLI trains on 1")
     ap.add_argument("--verbose", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda with no card raises")
@@ -55,9 +57,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("Warning: --edge_checkpoint_path is accepted for compatibility "
               "but unused (the reference never reads it either).", file=sys.stderr)
     if args.n_devices > 1 or args.spatial > 1:
-        print(f"Error: --n_devices {args.n_devices} --spatial {args.spatial}: sharded "
-              "training is not ported yet (ROADMAP.md, section 1, item 7, the "
-              "parallel slice); the port trains on one card.", file=sys.stderr)
+        print(f"Error: --n_devices {args.n_devices} --spatial {args.spatial}: the CLI "
+              "trains on one card (one card cannot hold an nccl group of more than one "
+              "rank; the CLI's multi-card route is ROADMAP.md, section 1). The sharded "
+              "train step runs over gloo processes on the CPU: python -m "
+              "fs_uae_image_enhancer_project_tpu_torch.parallel.dryrun 4.", file=sys.stderr)
         return 1
 
     from .. import resolve_device

@@ -243,7 +243,7 @@ class TrainerConfig:
     inference_always: bool = False
     dump_internals: bool = False  # save per-layer activation images
     compute_dtype: str = "bfloat16"
-    mesh: Optional[object] = None  # sharded training: not ported (raises)
+    mesh: Optional[object] = None  # the trainer runs on one card (raises)
     verbose: int = 1
     # wait for the card every K optimizer steps, never fetch a loss a step:
     # the epoch's losses are stacked on the device and fetched once
@@ -296,8 +296,9 @@ class Trainer:
         dev = self.device
         if cfg.mesh is not None:
             raise NotImplementedError(
-                "sharded training (a mesh) is not ported yet: ROADMAP.md, section 1, "
-                "item 7 (parallel/)")
+                "the trainer runs on one card: its multi-card route (a process a card, "
+                "each loading its dp shard) is ROADMAP.md, section 1, item 2; the "
+                "sharded train step itself is parallel.train_step with mesh=")
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         (start_epoch, best_val, best_epoch, no_improve, lr0, ckpt_path) = (
             load_last_epoch_and_checkpoint(cfg.lr, self.stats_file))

@@ -185,7 +185,10 @@ def _imports(path):
 NEW_MODULES = ("utils.profiler", "utils.threefry", "ops.cuda.fused_stack_packed",
                "ops.cuda.lane_packing", "scripts.bench_fused_stack", "scripts.bench_lane_packing",
                "losses.vgg", "losses.perceptual", "losses.ssim", "models.conv_stack",
-               "data.dataset", "parallel.train_step", "train.trainer", "train.cli")
+               "data.dataset", "parallel.train_step", "train.trainer", "train.cli",
+               "utils.subproc", "runtime.sidecar_replay", "models.summary", "models.benchmark",
+               "parallel.mesh", "parallel.spatial", "parallel.inference", "parallel.dryrun",
+               "datagen.rgb444_flat", "datagen.prepare_groundtruth")
 
 
 def test_port_chip_smoke_and_card_tests_import_no_jax():

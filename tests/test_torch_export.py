@@ -8,7 +8,7 @@ JAX package's, on the CPU.
   seeded frames at a window the U-Net takes (48x80 with its crop of 16):
   fp32 within one level of JAX's and equal in at least 99.9% of the values;
   bf16 at least 50 dB from JAX's bf16, or no further than JAX's bf16 is from
-  JAX's fp32;
+  JAX's fp32; the same bar on one full 576x752 frame;
 - export: the port's exporter writes the JAX exporter's bytes for the same
   numpy parameters (every family, fp16 and fp32), and re-exporting each
   shipped graph of the six gives the shipped file's bytes;
@@ -110,6 +110,24 @@ def test_enhance_bf16_matches_jax(family):
                             donate=False)(jnp.asarray(fr)))
     got = tor_enhance.enhance_from_onnx(_artifact(family), device="cpu")(fr).numpy()
     jax_margin = psnr(want16, want32)  # JAX's own bf16 against its fp32
+    assert psnr(got, want16) >= min(50.0, jax_margin), (psnr(got, want16), jax_margin)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_enhance_bf16_full_frame_matches_jax(family):
+    """The deployed bf16 enhance of one full 576x752 frame, port against JAX,
+    at the bar of the window test above. With this frame JAX's own bf16 is
+    52.96 dB (conv3_heavy) or more from its fp32, so every family is held to
+    50 dB: none falls to the min() branch."""
+    fr = _frames((1, 576, 752, 4), seed=3)
+    jfn = jax_enhance.enhance_from_onnx
+    want16 = np.asarray(jfn(_artifact(family), donate=False)(jnp.asarray(fr)))
+    want32 = np.asarray(jfn(_artifact(family), compute_dtype=jnp.float32,
+                            donate=False)(jnp.asarray(fr)))
+    got = tor_enhance.enhance_from_onnx(_artifact(family), device="cpu")(fr).numpy()
+    assert got.shape == fr.shape and got.dtype == np.uint8
+    jax_margin = psnr(want16, want32)
+    assert jax_margin >= 50.0, (family, jax_margin)
     assert psnr(got, want16) >= min(50.0, jax_margin), (psnr(got, want16), jax_margin)
 
 

@@ -27,6 +27,7 @@ from fs_uae_image_enhancer_project_tpu_torch.losses import build_criterion
 from fs_uae_image_enhancer_project_tpu_torch.models import get_model, pix_shuffle, train_apply
 from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack
 from fs_uae_image_enhancer_project_tpu_torch.parallel import train_step as T
+from fs_uae_image_enhancer_project_tpu_torch.parallel.mesh import Mesh
 
 
 def _capture_grads():
@@ -175,8 +176,12 @@ def test_the_step_never_calls_the_kernel_route(monkeypatch):
 
 
 def test_mesh_raises_and_state_round_trip():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.make_train_step(lambda p, x: x, lambda y, t: y.mean(), mesh=object())
+    # a BatchNorm model under sp > 1 (a 1 x 2 mesh; no process group needed
+    # to be refused) is the one mesh the step refuses
+    mesh = Mesh(np.arange(2).reshape(1, 2), 0, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.make_train_step(lambda p, x: x, lambda y, t: y.mean(), has_batchnorm=True,
+                          mesh=mesh)
     m = get_model("conv5")
     params = m.init(torch.Generator().manual_seed(0), device="cpu")
     trainable, buffers = T.split_bn_buffers(params)

@@ -233,7 +233,8 @@ def test_cli_trains_a_tiny_tree_on_the_cpu(tiny_dataset, tmp_path, capsys):
 def test_cli_refuses_sharding_and_a_missing_card(tiny_dataset, tmp_path, capsys):
     base = _cli_args(tiny_dataset, str(tmp_path / "x"), "--epochs", "1")
     assert cli.main(base + ["--n_devices", "2", "--device", "cpu"]) == 1
-    assert "parallel slice" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "parallel.dryrun" in err and "gloo" in err
     assert cli.main(base + ["--spatial", "2", "--device", "cpu"]) == 1
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
