@@ -77,12 +77,44 @@ Phases, each printing one JSON line with its wall time:
               CPU's, or of fp64 beyond twice the CPU's own error). Then
               samples/s, ms a step, the loader-wait share and peak memory
               at accumulation 16, bf16, VGG on and off (one warm-up step,
-              32 micro-batches)
-13. kernel_bench  the two kernel benches (slice 3's main path), about a
+              32 micro-batches). Then the trainer's mesh path (slice 9) on a
+              1x1 mesh over nccl (world size 1) against the run without a
+              mesh, cuDNN deterministic: the checkpoint within 1e-6, K1 once
+              a validation batch, and the mesh path's collectives counted
+              (rank 0's state broadcast leaf by leaf, each step's gradients
+              and loss all-reduced, each validation loss all-reduced: the
+              calls a larger mesh makes, over a world of one rank); and the
+              CLI asked for more ranks than
+              cards (--n_devices 2 on one card) exits 1 with JAX's message
+13. nas       the NAS entry point (slice 9): nas.studies.main, prune_act_r2
+              (20 activations, layer 6's kernel size), 4 trials on the
+              datagen tree cut to 128x96, 1 epoch of 32 samples at batch
+              16, FPS of each candidate at 576x752 bf16 for 0.5 s, the
+              study and the FPS cache in a temporary directory, counters
+              from 0 (no kernel of the repo: conv6 is eager cuDNN). Checks:
+              every trial COMPLETE (a trial's exception is a FAIL row) with
+              an FPS above 0 (a failed measurement is cached as 0.0), a
+              finite best value, every trial's params replayed
+              (config_from_trial_params) to an architecture the FPS cache
+              holds with the trial's FPS, one cache entry an architecture,
+              the best trial's FPS again from the cache with no new
+              measurement, the database reloaded equal, prune_failed, and
+              param_importances finite. Each completed trial's train step
+              timed warm on one batch of the tree. Each trial's
+              architecture hash, FPS, ms a step, validation loss and state
+              on a line
+14. tools     the VGG self-training (20 steps at the asset JSON's patch and
+              batch from the committed encoder; loss down; rescale_taps to
+              the stored targets within 1e-4; save_asset read back),
+              raw_runner on a seeded 752x576 raw RGBA file with the shipped
+              pix_shuffle graph (its PNG byte-equal to enhance_from_onnx's
+              frame, K1 once, counted from 0), onnx_dump and onnx_svg on
+              that graph (one line and one box a node)
+15. kernel_bench  the two kernel benches (slice 3's main path), about a
               second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-14. timing    K1's and K2's device time a call (median, min and max of 3
+16. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -98,7 +130,7 @@ Phases, each printing one JSON line with its wall time:
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-15. kernels   every kernel launched, held against its plain version
+17. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -165,6 +197,12 @@ SERVE_DEPTH = 2
 # frames a served-latency reading replays
 STREAM_FRAMES = 200
 LATENCY_FRAMES = 320
+# slice 9: the NAS study the nas phase runs, its trials (4: the fewest
+# with which param_importances scores) and its crop (W, H)
+NAS_STUDY, NAS_TRIALS, NAS_CROP = "prune_act_r2", 4, (128, 96)
+# the VGG self-training's learning rate: the peak of the committed asset's
+# run (scripts/train_vgg_features.py --lr)
+VGG_LR = 2e-4
 
 _phase = "start"
 
@@ -1048,6 +1086,381 @@ def check_train(rec: dict, dev) -> None:
         check(not bad, f"fp32 step gradients, card vs cpu and fp64, {label} weights: {bad}")
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def train_mesh(dev, tree: str, crop=(CROP_W, CROP_H), samples: int = 4, accum: int = 2,
+               val_samples: int = 2) -> dict:
+    """The trainer's mesh path (slice 9) on a 1x1 mesh in a process group of
+    world size 1 (``nccl`` on a card, ``gloo`` on the CPU, at
+    ``tcp://localhost:<free port>``) against the same run with no mesh:
+    the lightweight pix_shuffle with its own criterion, one epoch of
+    ``samples`` uint8 batches of 1 (``accum`` a step), ``val_samples``
+    validation batches, cuDNN deterministic in both runs; K1's launches in
+    the mesh run's validation, and the mesh run's calls of
+    ``torch.distributed.broadcast`` and ``all_reduce`` (the 1x1 mesh holds
+    the world group, so its trainer and train step make every collective of
+    a larger mesh). Then the training CLI asked for one rank more than the
+    cards visible (at least 2), which must exit 1."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from fs_uae_image_enhancer_project_tpu_torch.data import (
+        SRDataset, gather_all_samples_from_directory, split_pairs)
+    from fs_uae_image_enhancer_project_tpu_torch.models import get_model
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.parallel import mesh as pm
+    from fs_uae_image_enhancer_project_tpu_torch.parallel.train_step import leaves
+    from fs_uae_image_enhancer_project_tpu_torch.train import cli
+    from fs_uae_image_enhancer_project_tpu_torch.train import trainer as tr
+
+    m = get_model("pix_shuffle")
+    train_pool, val_pool = split_pairs(gather_all_samples_from_directory(tree, crop, verbose=0),
+                                       0.1)
+    rec: dict = {}
+
+    def run(mesh, ckpt_dir):
+        cfg = tr.TrainerConfig(num_epochs=1, batch_size=1, accumulation_steps=accum,
+                               checkpoint_interval=1, checkpoint_dir=ckpt_dir, verbose=0,
+                               device=str(dev), mesh=mesh)
+        tr.Trainer(m, cfg).train(
+            SRDataset(train_pool, crop, samples, transfer_dtype="uint8"),
+            SRDataset(val_pool, crop, val_samples, flips=False, seed=1, transfer_dtype="uint8"))
+        return torch.load(os.path.join(ckpt_dir, "checkpoint_epoch_1_pix_shuffle",
+                                       tr.CHECKPOINT_FILE), map_location="cpu", weights_only=True)
+
+    keep = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            plain = run(None, os.path.join(tmp, "plain"))
+            pm.init_process_group(0, 1, device=dev, init_method=f"tcp://localhost:{_free_port()}")
+            try:
+                rec["backend"], rec["world_size"] = dist.get_backend(), dist.get_world_size()
+                calls = {"broadcast": 0, "all_reduce": 0}
+                real = {k: getattr(dist, k) for k in calls}
+
+                def counted(name):
+                    def call(*a, **kw):
+                        calls[name] += 1
+                        return real[name](*a, **kw)
+                    return call
+
+                fs.fused_stack.launches = 0
+                for k in calls:
+                    setattr(dist, k, counted(k))
+                try:
+                    meshed = run(pm.make_mesh(1, device=dev), os.path.join(tmp, "mesh"))
+                finally:
+                    for k, fn in real.items():
+                        setattr(dist, k, fn)
+                rec["k1_launches"] = fs.fused_stack.launches
+                rec["collectives"] = calls
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = keep
+    pairs = list(zip(leaves(plain["params"]) + leaves(plain["buffers"]),
+                     leaves(meshed["params"]) + leaves(meshed["buffers"])))
+    rec.update(steps=[plain["step"], meshed["step"]], leaves=len(pairs),
+               param_leaves=len(leaves(meshed["params"])),
+               max_abs_diff=max(float((a - b).abs().max()) for a, b in pairs),
+               validation_batches=val_samples)
+
+    asked = max(2, torch.cuda.device_count() + 1)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["--model_type", "pix_shuffle", "--generator_train_dir", tree,
+                       "--batch_size", str(asked), "--n_devices", str(asked), "--device", "cuda",
+                       "--verbose", "0"])
+    rec["cli_too_few_cards"] = dict(n_devices=asked, visible=torch.cuda.device_count(),
+                                    exit_code=rc, stderr=err.getvalue().strip())
+    return rec
+
+
+def check_train_mesh(rec: dict, dev) -> None:
+    check(rec["backend"] == ("nccl" if dev.type == "cuda" else "gloo") and rec["world_size"] == 1,
+          f"the mesh's process group: {rec['backend']}, world size {rec['world_size']}")
+    check(rec["steps"][0] == rec["steps"][1] > 0, f"steps {rec['steps']}")
+    check(rec["max_abs_diff"] <= 1e-6,
+          f"the 1x1 mesh's checkpoint is {rec['max_abs_diff']} from the run without a mesh")
+    want = rec["validation_batches"] if dev.type == "cuda" else 0
+    check(rec["k1_launches"] == want,
+          f"K1 launched {rec['k1_launches']} times on the mesh path, not {want}")
+    # the state's broadcast; a step's gradients and loss; a validation loss
+    want = {"broadcast": rec["leaves"],
+            "all_reduce": rec["steps"][1] * (rec["param_leaves"] + 1) + rec["validation_batches"]}
+    check(rec["collectives"] == want,
+          f"the mesh path's collectives: {rec['collectives']}, not {want}")
+    cli_rec = rec["cli_too_few_cards"]
+    msg = (f"Error: --n_devices {cli_rec['n_devices']} but only {cli_rec['visible']} devices "
+           "visible")
+    check(cli_rec["exit_code"] == 1 and cli_rec["stderr"].startswith(msg),
+          f"the CLI with too few cards: {cli_rec}")
+
+
+def nas_tree(tree: str, out: str, crop=NAS_CROP) -> int:
+    """The generator tree's pairs cut to ``crop`` (W, H), their top-left
+    corner: every PNG of ``tree``, target and styled crop alike, saved under
+    its own name in ``out``. Returns the number of files."""
+    from PIL import Image
+
+    n = 0
+    for root, _dirs, names in os.walk(tree):
+        dest = os.path.join(out, os.path.relpath(root, tree))
+        os.makedirs(dest, exist_ok=True)
+        for name in names:
+            if name.endswith(".png"):
+                with Image.open(os.path.join(root, name)) as im:
+                    im.crop((0, 0) + tuple(crop)).save(os.path.join(dest, name))
+                n += 1
+    return n
+
+
+def arch_hash(arch_key: str) -> str:
+    """A short name for an architecture: the first 12 hex digits of the
+    SHA-256 of its canonical key (``config_to_json``)."""
+    import hashlib
+
+    return hashlib.sha256(arch_key.encode()).hexdigest()[:12]
+
+
+def nas(dev, tree: str, crop=NAS_CROP, trials: int = NAS_TRIALS, samples: int = 32,
+        fps_duration: float = 0.5, timed_steps: int = 5) -> dict:
+    """The NAS entry point (slice 9): ``nas.studies.main`` with the
+    prune_act_r2 preset (all 20 activations, layer 6's kernel size) for
+    ``trials`` trials on the generator tree cut to ``crop``: one epoch of
+    ``samples`` samples a trial at batch 16, FPS measured for
+    ``fps_duration`` s at 576x752 bf16, the study's SQLite database and the
+    FPS cache in a temporary directory. What each trial did is read back
+    from those two files: its state, value and validation loss from the
+    database, its architecture replayed from its params
+    (``config_from_trial_params``) and looked up in the FPS cache, whose
+    entries count the measurements. Each completed trial's train step
+    (``studies.trial_train_step``) is then timed on its own, warm, on one
+    batch of the tree. Then the best trial's FPS again through the cache,
+    the database reloaded, ``prune_failed`` and ``param_importances``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.data import (
+        SRDataset, gather_all_samples_from_directory)
+    from fs_uae_image_enhancer_project_tpu_torch.models import conv6
+    from fs_uae_image_enhancer_project_tpu_torch.models.configs import config_to_json
+    from fs_uae_image_enhancer_project_tpu_torch.nas import FPSCache, prune_failed, search, studies
+    from fs_uae_image_enhancer_project_tpu_torch.nas.visualize import param_importances
+    from fs_uae_image_enhancer_project_tpu_torch.parallel.train_step import (
+        init_train_state, make_optimizer)
+
+    rec: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "tree")
+        rec["files"] = nas_tree(tree, src, crop)
+        db, cache = os.path.join(tmp, "studies.sqlite"), os.path.join(tmp, "fps.json")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = studies.main([
+                "--study", NAS_STUDY, "--storage", db, "--trials", str(trials),
+                "--generator_train_dir", src, "--crop_size", str(crop[0]), str(crop[1]),
+                "--epochs_per_trial", "1", "--samples_per_epoch", str(samples),
+                "--fps_duration", str(fps_duration), "--fps_cache", cache,
+                "--device", str(dev)])
+        _sync(dev)
+        rec["study_s"] = time.perf_counter() - t0
+        rec["exit_code"] = rc
+        with open(cache) as f:
+            rec["fps_measurements"] = len(json.load(f))
+        fps_cache = FPSCache(cache)
+        study = search.Study(NAS_STUDY, db)
+        batch = next(iter(SRDataset(gather_all_samples_from_directory(src, crop, verbose=0),
+                                    crop, 16, batch_size=16, transfer_dtype="uint8")))
+        lr_b, hr_b = (torch.as_tensor(a).to(dev)[None] for a in batch)
+        rec["trials"] = []
+        for t in study.trials:
+            cfg = studies.config_from_trial_params(NAS_STUDY, t.params)
+            key = config_to_json(cfg)
+            ms = None
+            if t.state == search.COMPLETE:
+                state = init_train_state(conv6.init(cfg, torch.Generator().manual_seed(t.number),
+                                                    device=dev),
+                                         make_optimizer(lr=t.params["learning_rate"]))
+                step = studies.trial_train_step(cfg)
+
+                def one_step():
+                    nonlocal state
+                    state, _ = step(state, lr_b, hr_b)
+
+                ms = _wall_ms(one_step, dev, n=timed_steps)
+            rec["trials"].append(dict(
+                number=t.number, state=t.state, value=t.value, arch=arch_hash(key),
+                fps=t.params.get("fps_measured"), fps_cached=fps_cache.get(key),
+                epochs=len(t.intermediate), ms_per_step=ms,
+                val_loss=t.intermediate.get(max(t.intermediate, default=0)),
+                layer6_kernel=t.params.get("layer6_kernel_size"),
+                learning_rate=t.params.get("learning_rate")))
+        best = study.best_trial
+        rec["best"] = dict(number=best.number, value=best.value) if best else None
+        if best is not None:
+            key = config_to_json(studies.config_from_trial_params(NAS_STUDY, best.params))
+            again = []
+            fps = fps_cache.get_or_measure(key, lambda: again.append(1) or 0.0)
+            rec["replay"] = dict(arch=arch_hash(key), fps_from_cache=fps,
+                                 fps_recorded=best.params["fps_measured"],
+                                 new_measurements=len(again))
+        rec["reload_equal"] = search.Study(NAS_STUDY, db).trials == study.trials
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec["prune_exit_code"] = prune_failed.main(["--storage", db, "--study", NAS_STUDY])
+        rec["after_prune"] = len(search.Study(NAS_STUDY, db).trials)
+        rec["importances"] = param_importances(search.Study(NAS_STUDY, db))
+    rec["trials_asked"] = trials
+    return rec
+
+
+def check_nas(rec: dict) -> None:
+    check(rec["exit_code"] == 0, f"nas.studies exited {rec['exit_code']}")
+    trials = rec["trials"]
+    check(len(trials) == rec["trials_asked"], f"{len(trials)} trials of {rec['trials_asked']}")
+    check(all(t["state"] == "COMPLETE" for t in trials),
+          f"a trial did not complete: {[(t['number'], t['state']) for t in trials]}")
+    check(all(t["fps"] > 0 and math.isfinite(t["fps"]) for t in trials),
+          f"an FPS measurement failed (a failure is cached as 0.0): {trials}")
+    # the replayed architecture is the one the objective measured: its key
+    # is in the cache, with the trial's FPS
+    check(all(t["fps_cached"] == t["fps"] for t in trials),
+          f"a trial's params replay to an architecture the cache does not hold: {trials}")
+    check(all(t["epochs"] == 1 and math.isfinite(t["val_loss"])
+              and t["ms_per_step"] is not None and t["ms_per_step"] > 0 for t in trials),
+          f"epochs, validation losses or step times: {trials}")
+    check(rec["fps_measurements"] == len({t["arch"] for t in trials}),
+          f"{rec['fps_measurements']} FPS measurements for {len(trials)} trials")
+    check(rec["best"] is not None and math.isfinite(rec["best"]["value"]),
+          f"best value {rec['best']}")
+    rp = rec["replay"]
+    check(rp["fps_from_cache"] == rp["fps_recorded"] and rp["new_measurements"] == 0,
+          f"the best trial's replay: {rp}")
+    check(rec["reload_equal"], "the study database reloads to other trials")
+    check(rec["prune_exit_code"] == 0 and rec["after_prune"] == len(trials),
+          f"prune_failed: exit {rec['prune_exit_code']}, {rec['after_prune']} trials left")
+    imps = rec["importances"]
+    check(isinstance(imps, dict) and all(math.isfinite(v) for v in imps.values())
+          and (imps or len(trials) < 4), f"param_importances: {imps}")
+
+
+def tools(dev, vgg_steps: int = 20, vgg_batch=None, vgg_patch=None) -> dict:
+    """The three tools of slice 9 on ``dev``: the VGG self-training
+    (``vgg_steps`` Adam steps at the asset's peak learning rate on seeded
+    patches at the asset JSON's patch size and batch, from the committed
+    encoder and a seeded decoder; one more step profiled; the tap
+    calibration to the stored targets on a probe of 4 patches; the asset
+    written and read back), ``raw_runner`` on a seeded 752x576 raw RGBA
+    file with the shipped pix_shuffle graph (K1's launches counted from 0),
+    and ``onnx_dump`` and ``onnx_svg`` on that graph."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from fs_uae_image_enhancer_project_tpu_torch.export import onnx_dump, onnx_svg, raw_runner
+    from fs_uae_image_enhancer_project_tpu_torch.export.enhance import enhance_from_onnx
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_proto import load_model
+    from fs_uae_image_enhancer_project_tpu_torch.losses import vgg
+    from fs_uae_image_enhancer_project_tpu_torch.losses import vgg_selftrain as st
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+
+    rec: dict = {}
+    with open(st.ASSET_JSON) as f:
+        meta = json.load(f)
+    patch, batch = vgg_patch or meta["patch"], vgg_batch or meta["batch"]
+    x = torch.from_numpy(np.stack([gradient_noise(patch, patch, seed=40 + i)
+                                   for i in range(batch)]).astype(np.float32) / 255.0).to(dev)
+    enc = vgg.init_vgg16(device=dev)
+    dec = st.init_decoder(torch.Generator().manual_seed(0), device=dev)
+    step = st.make_train_step(enc, dec, VGG_LR)
+    losses = [float(step(x))]
+    _sync(dev)
+    t0 = time.perf_counter()
+    losses += [step(x) for _ in range(vgg_steps - 1)]
+    _sync(dev)
+    step_ms = (time.perf_counter() - t0) / max(vgg_steps - 1, 1) * 1e3
+    losses = losses[:1] + [float(v) for v in losses[1:]]
+    busy, top, n_kernels = _device_busy(lambda: step(x), dev)  # one more step, profiled
+    host = dict(load_1min=os.getloadavg()[0], threads=threading.active_count())
+    targets = st.random_baseline_rms()
+    probe = x[:4].cpu().numpy()
+    scaled = st.rescale_taps(enc, probe, targets)
+    got = st.measure_tap_rms(scaled, probe)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vgg16_features_selftrained.npz")
+        st.save_asset(scaled, path)
+        back = vgg._load_asset(path, device=dev)
+    rec["vgg_selftrain"] = dict(
+        patch=patch, batch=batch, steps=vgg_steps, loss_first=losses[0], loss_last=losses[-1],
+        ms_per_step=step_ms, profiled_kernel_ms=busy, kernels_per_step=n_kernels,
+        top_kernels=top, host=host, tap_rms=got, tap_targets=targets,
+        tap_rel_err=max(abs(a - b) / b for a, b in zip(got, targets)),
+        asset_round_trip=all(torch.equal(a[k], b[k].detach()) for a, b in zip(back, scaled)
+                             for k in ("w", "b")) and len(back) == len(scaled))
+
+    frame = np.random.default_rng(7).integers(0, 256, (576, 752, 4), dtype=np.uint8)
+    graph = load_model(ONNX).graph
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, png = os.path.join(tmp, "frame.raw"), os.path.join(tmp, "frame.png")
+        frame.tofile(raw)
+        fs.fused_stack.launches = 0
+        t0 = time.perf_counter()
+        out = raw_runner.run_inference(ONNX, raw, png, verbose=0, device=dev)
+        run_s = time.perf_counter() - t0
+        launches = fs.fused_stack.launches
+        want = enhance_from_onnx(ONNX, device=dev)(frame[None]).cpu().numpy()
+        with Image.open(png) as im:
+            written = np.asarray(im)
+        rec["raw_runner"] = dict(seconds=run_s, k1_launches=launches, shape=list(written.shape),
+                                 png_equal=bool(np.array_equal(written, want[0])),
+                                 returned_equal=bool(np.array_equal(out, want)))
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc_dump = onnx_dump.main([ONNX])
+            rc_svg = onnx_svg.main([ONNX, "--out", os.path.join(tmp, "graph.svg")])
+        with open(os.path.join(tmp, "graph.svg")) as f:
+            svg = f.read()
+    dump = text.getvalue()
+    rec["onnx_tools"] = dict(
+        exit_codes=[rc_dump, rc_svg], nodes=len(graph.nodes),
+        dump_lines=dump.count("\n"),
+        dump_nodes=sum(1 for line in dump.splitlines() if line.startswith("  [")),
+        svg_bytes=len(svg), svg_boxes=svg.count('rx="6"'))
+    return rec
+
+
+def check_tools(rec: dict, dev) -> None:
+    v = rec["vgg_selftrain"]
+    check(math.isfinite(v["loss_last"]) and v["loss_last"] < v["loss_first"],
+          f"VGG self-training: loss {v['loss_first']} -> {v['loss_last']}")
+    check(v["tap_rel_err"] <= 1e-4, f"rescale_taps: {v['tap_rms']} vs {v['tap_targets']}")
+    check(v["asset_round_trip"], "save_asset does not read back through losses/vgg.py")
+    r = rec["raw_runner"]
+    check(r["png_equal"] and r["returned_equal"] and r["shape"] == [576, 752, 4],
+          f"raw_runner's frame is not enhance_from_onnx's: {r}")
+    want = 1 if dev.type == "cuda" else 0
+    check(r["k1_launches"] == want, f"raw_runner launched K1 {r['k1_launches']} times, not {want}")
+    o = rec["onnx_tools"]
+    check(o["exit_codes"] == [0, 0] and o["dump_nodes"] == o["nodes"] == o["svg_boxes"],
+          f"onnx_dump / onnx_svg: {o}")
+
+
 def family_artifact(name: str) -> str:
     return os.path.join(REPO, "artifacts", f"model_{name}", f"{name}.onnx")
 
@@ -1635,11 +2048,34 @@ def main(argv=None) -> int:
     _phase = "train"
     t0 = time.perf_counter()
     trn = train_phase(dev, tree)
-    work.cleanup()
+    trn["mesh"] = train_mesh(dev, tree)
     emit("train", t0, **trn, nvidia_smi=smi)
     check_train(trn, dev)
+    check_train_mesh(trn["mesh"], dev)
 
-    # 13. kernel_bench: slice 3's main path, every counter from 0
+    # 13. nas: slice 9's NAS entry point on the datagen phase's tree, cut to
+    # 128x96 (conv6 runs eager cuDNN: no kernel of the repo on this path)
+    _phase = "nas"
+    t0 = time.perf_counter()
+    for counter in _counters().values():
+        counter.launches = 0
+    nas_rec = nas(dev, tree)
+    work.cleanup()
+    nas_rec["launches"] = {k: c.launches for k, c in _counters().items()}
+    emit("nas", t0, **nas_rec, nvidia_smi=smi)
+    for t in nas_rec["trials"]:
+        print(f"nas trial {t['number']}: arch {t['arch']} fps {t['fps']} "
+              f"ms/step {t['ms_per_step']} val {t['val_loss']} {t['state']}", flush=True)
+    check_nas(nas_rec)
+
+    # 14. tools: the VGG self-training, raw_runner (K1) and the ONNX tools
+    _phase = "tools"
+    t0 = time.perf_counter()
+    tools_rec = tools(dev)
+    emit("tools", t0, **tools_rec, nvidia_smi=smi)
+    check_tools(tools_rec, dev)
+
+    # 15. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -1649,7 +2085,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 14. timing at the main paths' shapes
+    # 16. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -1716,13 +2152,15 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 15. kernels
+    # 17. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
         counterpart="ops/pallas/fused_stack.py::_stack_kernel",
         launches=launches["fused_stack"], train_validation_launches=trn["k1_launches"]["all"],
         parallel_tools_launches=ptools["launches"],
+        train_mesh_validation_launches=trn["mesh"]["k1_launches"],
+        raw_runner_launches=tools_rec["raw_runner"]["k1_launches"],
         max_abs_err=k1_err, ms=k1_ms, kernel_ms=k1_ms,
         plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms),

@@ -29,10 +29,16 @@ What is ported, by slice:
    measure_stream_throughput``, ``runtime.sidecar_replay``,
    ``utils.subproc``, ``models.benchmark`` and ``models.summary``), with the
    ground-truth tools ``datagen.prepare_groundtruth`` and
-   ``datagen.rgb444_flat``.
+   ``datagen.rgb444_flat``;
+9. the parallel layer's two gaps (BatchNorm under sp, the training CLI's
+   launcher of one process a rank), NAS (``nas``: the search engine, the FPS
+   cache, the activation studies over conv6, the cleanup and the plots),
+   the VGG self-training (``losses.vgg_selftrain``), the raw-frame runner
+   (``export.raw_runner``, K1 for pix_shuffle) and the ONNX text and SVG
+   tools (``export.onnx_dump``, ``export.onnx_svg``).
 
-Still to come: ``torch.export`` for the JAX package's StableHLO export, NAS
-and tooling (ROADMAP.md).
+Still to come: ``torch.export`` for the JAX package's StableHLO export, and
+tooling (ROADMAP.md).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 :func:`resolve_device` raises when a card is asked for (or implied) and

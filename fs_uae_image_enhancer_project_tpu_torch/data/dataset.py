@@ -207,14 +207,24 @@ class SRDataset:
         raise RuntimeError("10 consecutive sample load failures")
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        return self.batches()
+
+    def batches(self, part: int = 0, parts: int = 1) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """The epoch's batches, each cut to its ``part``-th of ``parts``
+        equal blocks along the batch axis (a dp rank's share): every draw is
+        made, so the stream is the whole batches', and only the block's
+        pairs are loaded."""
         if not self.pool:
             raise IndexError("SRDataset pool is empty. Cannot draw samples.")
+        if self.batch_size % parts:
+            raise ValueError(f"batch {self.batch_size} must be divisible by {parts} parts")
+        n = self.batch_size // parts
         with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
             for _ in range(len(self)):
                 # every draw of a batch before any load: numpy Generators are
                 # not thread-safe, and the stream must not depend on threads
                 plans = [self._plan_draw() for _ in range(self.batch_size)]
-                items = list(ex.map(self._load_planned, plans))
+                items = list(ex.map(self._load_planned, plans[part * n:(part + 1) * n]))
                 yield np.stack([a for a, _ in items]), np.stack([b for _, b in items])
 
 

@@ -74,12 +74,14 @@ def _act(x: torch.Tensor, cfg: ConvStackConfig, is_last: bool) -> torch.Tensor:
 
 
 def apply(params: Params, x: torch.Tensor, cfg: ConvStackConfig, *, train: bool = False,
-          bn_group=None):
+          bn_group=None, bn_rows=None):
     """Float RGB forward, NHWC in and out. With ``train`` it also returns the
     updated batchnorm stats, ``(y, {bn_key: stats})`` (the functional form of
     torch's in-place running-stat update); ``bn_group`` takes the batch
-    statistics over that process group's ranks (data parallelism,
-    ``ops.conv.batchnorm_train``). fp32 is fp32 on a card (TF32 off)."""
+    statistics over that process group's ranks and ``bn_rows = (lo, hi)``
+    over a spatial slab's owned rows only (``ops.conv.batchnorm_train``):
+    every layer runs at the input's resolution, so a slab's rows are each
+    layer's rows. fp32 is fp32 on a card (TF32 off)."""
     new_stats: Params = {}
     n_layers = len(cfg.channels)
     with no_tf32():
@@ -91,7 +93,7 @@ def apply(params: Params, x: torch.Tensor, cfg: ConvStackConfig, *, train: bool 
             if bn_key in params:
                 if train:
                     x, new_stats[bn_key] = batchnorm_train(params[bn_key], x,
-                                                           group=bn_group)
+                                                           group=bn_group, rows=bn_rows)
                 else:
                     x = batchnorm_inference(params[bn_key], x)
             if skip is not None:

@@ -3,7 +3,8 @@
 Port of ``fs_uae_image_enhancer_project_tpu/ops/conv.py``: ``conv2d``,
 ``init_conv``, the depthwise conv of the Laplacian loss, batchnorm in
 inference and training mode (with batch statistics synchronised over a
-process group under data parallelism), and the conv-BN fold. Parameters are
+process group, over a spatial slab's owned rows under sp), and the conv-BN
+fold. Parameters are
 ``{"w": (kh, kw, cin, cout) HWIO, "b": (cout,)}`` in fp32, tensors are NHWC
 at the public functions, and the compute dtype is
 the input's (weights are cast to match). Init mirrors torch.nn.Conv2d's
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -137,28 +138,34 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def batchnorm_train(params: Params, x: torch.Tensor, momentum: float = 0.1,
-                    eps: float = 1e-5, group=None):
+                    eps: float = 1e-5, group=None, rows: Optional[Tuple[int, int]] = None):
     """Training-mode batchnorm: ``(y, updated stats)``.
 
     Batch statistics over (N, H, W) in fp32; the running stats follow
     torch's ``running = (1 - momentum) * running + momentum * batch`` with
     the unbiased variance. The new stats carry no gradient.
 
-    With a process ``group`` (the data-parallel ranks, each with an equal
-    shard of the batch) the statistics are the whole batch's, as the JAX
+    With a process ``group`` (the ranks of the mesh, each with an equal
+    block of the batch) the statistics are the whole batch's, as the JAX
     package's are under GSPMD: the per-channel sum, then the sum of squared
     deviations from the global mean, are all-reduced over the group
     (differentiably), and ``n`` counts every rank's rows.
+
+    ``rows = (lo, hi)`` takes the statistics over the slab's owned rows
+    ``[lo, hi)`` of the height axis only (a spatial slab's halo rows are
+    other ranks' rows, and must not count twice); every row, the halo's
+    included, is normalised with them.
     """
     xf = x.float()
-    n = x.shape[0] * x.shape[1] * x.shape[2]
+    owned = xf if rows is None else xf[:, rows[0]:rows[1]]
+    n = owned.shape[0] * owned.shape[1] * owned.shape[2]
     if group is None:
-        mean = xf.mean(dim=(0, 1, 2))
-        var = xf.var(dim=(0, 1, 2), unbiased=False)
+        mean = owned.mean(dim=(0, 1, 2))
+        var = owned.var(dim=(0, 1, 2), unbiased=False)
     else:
         n *= dist.get_world_size(group)
-        mean = _AllReduceSum.apply(xf.sum(dim=(0, 1, 2)), group) / n
-        var = _AllReduceSum.apply(((xf - mean) ** 2).sum(dim=(0, 1, 2)), group) / n
+        mean = _AllReduceSum.apply(owned.sum(dim=(0, 1, 2)), group) / n
+        var = _AllReduceSum.apply(((owned - mean) ** 2).sum(dim=(0, 1, 2)), group) / n
     y = ((xf - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]).to(x.dtype)
     mean, var = mean.detach(), var.detach()
     unbiased = var * (n / max(n - 1, 1))

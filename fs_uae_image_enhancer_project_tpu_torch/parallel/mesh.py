@@ -68,7 +68,9 @@ class Mesh:
     ``dp_group`` holds the ranks of this rank's sp column (the ranks it
     shares gradients and batch statistics with when sp is 1),
     ``sp_group`` those of its dp row (the slabs of one frame). A group is
-    None where its axis is 1 or there is no process group."""
+    None where its axis is 1 or there is no process group; ``world_group``
+    is the whole process group wherever there is one, a 1x1 mesh's too, so
+    that a world of one rank runs the same collectives as a larger one."""
 
     devices: np.ndarray
     rank: int
@@ -147,7 +149,7 @@ def make_mesh(
     return Mesh(grid, rank, dev,
                 dp_group=dp_groups[rank % sp] if dp > 1 else None,
                 sp_group=sp_groups[rank // sp] if sp > 1 else None,
-                world_group=dist.group.WORLD if n > 1 else None)
+                world_group=dist.group.WORLD)
 
 
 def _block(x, mesh: Mesh, batch_axis: int, height_axis: Optional[int]):

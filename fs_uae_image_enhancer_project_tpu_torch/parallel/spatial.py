@@ -23,8 +23,9 @@ halo, and the model's zero padding is what it is in the unsharded forward.
   communicates nothing, because every sp rank computes the same loss on the
   same gathered frame (``parallel/train_step.py``).
 
-BatchNorm in training takes statistics over whatever rows it is given, halo
-included, so a BatchNorm model trains with sp = 1 only.
+A BatchNorm model in training takes its statistics over each slab's owned
+rows only (:func:`apply_slab` passes them), all-reduced over the mesh, so the
+halo rows do not count twice.
 """
 from __future__ import annotations
 
@@ -68,10 +69,17 @@ def slab(h: int, sp: int, index: int, halo: Halo) -> Tuple[int, int, int, int]:
 
 
 def apply_slab(model_apply: Callable, params, x: torch.Tensor, *, sp: int, index: int,
-               halo: Halo) -> torch.Tensor:
-    """Slab ``index``'s output rows of the NHWC forward ``model_apply(params, x)``."""
+               halo: Halo, **train_kw):
+    """Slab ``index``'s output rows of the NHWC forward ``model_apply(params, x)``.
+
+    With ``train_kw`` (a BatchNorm model in training: ``train=True`` and its
+    ``bn_group``) the model also gets ``bn_rows``, the slab's owned rows,
+    and returns ``(y, stats)``: this returns ``(rows of y, stats)``."""
     lo, hi, a, b = slab(x.shape[1], sp, index, halo)
-    return model_apply(params, x[:, a:b])[:, lo - a:hi - a]
+    if not train_kw:
+        return model_apply(params, x[:, a:b])[:, lo - a:hi - a]
+    y, stats = model_apply(params, x[:, a:b], bn_rows=(lo - a, hi - a), **train_kw)
+    return y[:, lo - a:hi - a], stats
 
 
 def apply_split(model_apply: Callable, params, x: torch.Tensor, *, sp: int,

@@ -27,7 +27,7 @@ the step gives the JAX step's result on the global batch, on every rank:
 - dp: after the accumulation loop the gradients are all-reduced (a sum over
   every rank of the mesh) and divided by dp. Each rank's loss is a mean over
   its equal shard, so that is the gradient of the global mean. A BatchNorm
-  model takes its batch statistics over the dp group
+  model with sp = 1 takes its batch statistics over the dp group
   (``ops.conv.batchnorm_train``), as GSPMD makes JAX's global.
 - sp: the sp group all-gathers its row blocks of both batches (the input
   then stands for every slab's halo), each rank runs the model on its slab
@@ -36,9 +36,9 @@ the step gives the JAX step's result on the global batch, on every rank:
   included) runs unsharded on each sp rank, on the same frames; only the
   model's activations are split. The gather's backward hands each rank its
   own rows of the gradient, and the world all-reduce above sums the slabs'
-  parameter gradients. A BatchNorm model with sp > 1 raises
-  ``NotImplementedError`` (its statistics over halo'd slabs need a masked
-  synchronised BatchNorm).
+  parameter gradients. A BatchNorm model takes its statistics over each
+  slab's owned rows (halo rows left out), all-reduced over the whole mesh:
+  the global batch's, as GSPMD makes JAX's.
 - the returned loss is the global mean, on every rank.
 """
 from __future__ import annotations
@@ -158,27 +158,28 @@ def make_train_step(
     and the batchnorm stats of this step.
     """
     split = mesh is not None and mesh.sp > 1
-    if split and has_batchnorm:
-        raise NotImplementedError(
-            "a BatchNorm model with sp > 1 needs a masked synchronised BatchNorm "
-            "over the halo'd slabs (ROADMAP.md, section 1); train it with sp = 1")
     if split and not hasattr(model_apply, "model"):
         raise ValueError("a mesh with sp > 1 needs models.train_apply(model), whose "
                          "model gives the split's halo")
     halo = spatial.model_halo(model_apply.model) if split else None
     bn_kw = {}
-    if has_batchnorm and mesh is not None and mesh.dp_group is not None:
-        bn_kw["bn_group"] = mesh.dp_group
+    if has_batchnorm and mesh is not None:
+        # a slab's statistics join every rank's; without sp, the dp ranks'
+        bn_kw["bn_group"] = mesh.world_group if split else mesh.dp_group
     if input_transform is None:
         input_transform = lambda x: x  # noqa: E731
 
     def forward(params, x):
+        if split:
+            slab_kw = dict(sp=mesh.sp, index=mesh.sp_index, halo=halo)
+            if has_batchnorm:
+                y, stats = spatial.apply_slab(model_apply, params, x, train=True, **slab_kw,
+                                              **bn_kw)
+            else:
+                y, stats = spatial.apply_slab(model_apply, params, x, **slab_kw), {}
+            return spatial.gather_rows(y.float(), mesh), stats
         if has_batchnorm:
             return model_apply(params, x, train=True, **bn_kw)
-        if split:
-            y = spatial.apply_slab(model_apply, params, x, sp=mesh.sp, index=mesh.sp_index,
-                                   halo=halo)
-            return spatial.gather_rows(y.float(), mesh), {}
         return model_apply(params, x), {}
 
     def loss_fn(params, lr_mb, hr_mb):

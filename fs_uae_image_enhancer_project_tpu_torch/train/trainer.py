@@ -9,6 +9,13 @@ and per-epoch metrics (JSONL).
   validation runs ``model.apply`` in the compute dtype under
   ``torch.no_grad()``, so on a card the lightweight pix_shuffle validates
   through the fused-stack kernel K1. Sample renders run in fp32 (eager).
+- With a ``mesh`` (``parallel.mesh.make_mesh``, one process a rank) the
+  state is replicated from rank 0, each rank loads only its dp share of
+  every batch and keeps its block of rows over sp for training (whole frames
+  for validation), the train step all-reduces the gradients and
+  the loss, and the validation loss is all-reduced too: every rank takes the
+  same decisions and leaves with the same parameters. Rank 0 alone writes
+  the CSV, the metrics, the checkpoints and the renders.
 - Checkpoints are ``torch.save`` files (step, parameters, batchnorm buffers,
   optimizer and scheduler state), one a directory, at the JAX package's path
   names. The CSV stays the resume source for epochs, patience and the
@@ -33,9 +40,11 @@ from .. import resolve_device
 from ..data.dataset import SRDataset, batch_transform, device_prefetch
 from ..losses.perceptual import build_criterion
 from ..models import ModelDef, train_apply
+from ..parallel.mesh import all_reduce_
 from ..parallel.train_step import (
     TrainState,
     init_train_state,
+    leaves,
     make_optimizer,
     make_train_step,
     merge_bn_buffers,
@@ -243,7 +252,7 @@ class TrainerConfig:
     inference_always: bool = False
     dump_internals: bool = False  # save per-layer activation images
     compute_dtype: str = "bfloat16"
-    mesh: Optional[object] = None  # the trainer runs on one card (raises)
+    mesh: Optional[object] = None  # parallel.mesh.Mesh: this process is one rank
     verbose: int = 1
     # wait for the card every K optimizer steps, never fetch a loss a step:
     # the epoch's losses are stacked on the device and fetched once
@@ -262,11 +271,18 @@ class Trainer:
         self.metrics_file = os.path.join(cfg.checkpoint_dir, f"metrics_{model.name}.jsonl")
         self._render_fn = make_render_fn(model.apply, model.linear_io)
 
+    @property
+    def lead(self) -> bool:
+        """Whether this process writes: always on one card, rank 0 on a mesh."""
+        return self.cfg.mesh is None or self.cfg.mesh.rank == 0
+
     def _log(self, msg: str) -> None:
-        if self.cfg.verbose:
+        if self.cfg.verbose and self.lead:
             print(msg, flush=True)
 
     def _log_metrics(self, **kv) -> None:
+        if not self.lead:
+            return
         os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
         with open(self.metrics_file, "a") as f:
             f.write(json.dumps(kv) + "\n")
@@ -294,11 +310,7 @@ class Trainer:
         cfg = self.cfg
         m = self.model
         dev = self.device
-        if cfg.mesh is not None:
-            raise NotImplementedError(
-                "the trainer runs on one card: its multi-card route (a process a card, "
-                "each loading its dp shard) is ROADMAP.md, section 1, item 2; the "
-                "sharded train step itself is parallel.train_step with mesh=")
+        mesh = cfg.mesh
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         (start_epoch, best_val, best_epoch, no_improve, lr0, ckpt_path) = (
             load_last_epoch_and_checkpoint(cfg.lr, self.stats_file))
@@ -323,19 +335,47 @@ class Trainer:
             state = init_train_state(params, self.optimizer(lr0, train_ds),
                                      has_batchnorm=self.has_bn)
 
+        sharded = mesh is not None and mesh.world_group is not None
+        train_batches = eval_batches = iter
+        if sharded:
+            import torch.distributed as dist
+
+            # rank 0's state on every rank, in place: the optimizer holds the leaves
+            with torch.no_grad():
+                for t in leaves(state.params) + leaves(state.buffers):
+                    dist.broadcast(t, src=0)
+
+            # each rank loads only its dp share of every host batch; training
+            # keeps its sp block of rows (stacked, the blocks are
+            # accum_batch_sharding's block of the accumulation batch) and
+            # validation whole frames
+            def eval_batches(ds):
+                return ds.batches(mesh.dp_index, mesh.dp)
+
+            def train_batches(ds):
+                for b in eval_batches(ds):
+                    rows = b[0].shape[1] // mesh.sp
+                    yield tuple(a[:, mesh.sp_index * rows:(mesh.sp_index + 1) * rows]
+                                for a in b)
+
         compute_dtype = getattr(torch, cfg.compute_dtype)
         # uint8 batches become fp32 on the device; fp32 batches pass
         to_float = batch_transform(m.linear_io)
         train_step = make_train_step(train_apply(m), self.criterion,
                                      has_batchnorm=self.has_bn, compute_dtype=compute_dtype,
-                                     input_transform=to_float)
+                                     mesh=mesh, input_transform=to_float)
 
         @torch.no_grad()
         def eval_loss(params, buffers, lr_b, hr_b):
             full = merge_bn_buffers(params, buffers)
             x = to_float(lr_b).to(compute_dtype)
             y = m.apply(full, x)  # inference mode: running BN stats; K1 on a card
-            return self.criterion(y.float(), to_float(hr_b))
+            loss = self.criterion(y.float(), to_float(hr_b))
+            if sharded:
+                # the sp ranks of a dp share hold the same loss: the mean over
+                # the mesh is the dp shares' mean, the global batch's
+                loss = all_reduce_(loss.clone(), mesh.world_group) / mesh.size
+            return loss
 
         avg_inference_time = 0.0
         sync_every = max(cfg.loss_sync_steps, 1)
@@ -344,7 +384,7 @@ class Trainer:
             # ---- train ----
             losses: List[torch.Tensor] = []
             accum_lr, accum_hr = [], []
-            for lr_b, hr_b in device_prefetch(iter(train_ds), device=dev):
+            for lr_b, hr_b in device_prefetch(train_batches(train_ds), device=dev):
                 accum_lr.append(lr_b)
                 accum_hr.append(hr_b)
                 if len(accum_lr) < cfg.accumulation_steps:
@@ -364,7 +404,7 @@ class Trainer:
             # ---- validate ----
             val_losses: List[torch.Tensor] = []
             if val_ds is not None and val_ds.pool:
-                for lr_b, hr_b in device_prefetch(iter(val_ds), device=dev):
+                for lr_b, hr_b in device_prefetch(eval_batches(val_ds), device=dev):
                     val_losses.append(eval_loss(state.params, state.buffers, lr_b, hr_b))
                     if len(val_losses) % sync_every == 0:
                         self._sync()
@@ -377,13 +417,15 @@ class Trainer:
             if new_best:
                 best_val, best_epoch, no_improve = val_loss, epoch, 0
                 ckpt_path = os.path.join(cfg.checkpoint_dir, f"checkpoint_best_{m.name}")
-                save_checkpoint(ckpt_path, state)
+                if self.lead:
+                    save_checkpoint(ckpt_path, state)
                 self._log("New best model saved.")
             else:
                 no_improve += 1
 
-            if (epoch % cfg.checkpoint_interval == 0 or new_best
-                    or no_improve > cfg.early_stopping_patience or epoch == cfg.num_epochs):
+            if self.lead and (epoch % cfg.checkpoint_interval == 0 or new_best
+                              or no_improve > cfg.early_stopping_patience
+                              or epoch == cfg.num_epochs):
                 epoch_ckpt = os.path.join(cfg.checkpoint_dir, f"checkpoint_epoch_{epoch}_{m.name}")
                 save_checkpoint(epoch_ckpt, state)
                 save_training_stats(self.stats_file, epoch, train_loss, val_loss, no_improve,
@@ -399,7 +441,7 @@ class Trainer:
                 self._log("Early stopping triggered.")
                 break
 
-            if apply_inference and cfg.samples_dir:
+            if apply_inference and cfg.samples_dir and self.lead:
                 full_params = merge_bn_buffers(state.params, state.buffers)
                 avg_inference_time = inference_on_directory(
                     m.apply, full_params, cfg.samples_dir,

@@ -113,6 +113,26 @@ def test_srdataset_batches_are_jax_byte_for_byte(tmp_path, transfer_dtype, linea
         T.SRDataset(pairs, (8, 8), num_samples=2, transfer_dtype="float16")
 
 
+@pytest.mark.parametrize("parts", [2, 4])
+def test_srdataset_dp_share_is_jax_batches_block(tmp_path, parts):
+    """A dp rank's share (``batches(part, parts)``, what each rank of a mesh
+    loads): block ``part`` of JAX's whole batches, byte for byte, the stream
+    unchanged; a batch that does not divide raises."""
+    pairs = T.gather_all_samples_from_directory(_make_tree(str(tmp_path)), (8, 8), verbose=0)
+    kw = dict(num_samples=12, batch_size=4, seed=5, transfer_dtype="uint8")
+    want = _batches(J, pairs, **kw)
+    n = 4 // parts
+    for part in range(parts):
+        got = list(T.SRDataset(pairs, (8, 8), **kw).batches(part, parts))
+        assert len(got) == len(want) == 3
+        for (gl, gh), (wl, wh) in zip(got, want):
+            assert gl.shape == (n, 8, 8, 3)
+            assert gl.tobytes() == wl[part * n:(part + 1) * n].tobytes()
+            assert gh.tobytes() == wh[part * n:(part + 1) * n].tobytes()
+    with pytest.raises(ValueError, match="divisible"):
+        next(T.SRDataset(pairs, (8, 8), **kw).batches(0, 3))
+
+
 def test_srdataset_empty_pool_raises():
     with pytest.warns(UserWarning):
         ds = T.SRDataset([], (8, 8), num_samples=2)

@@ -188,7 +188,10 @@ NEW_MODULES = ("utils.profiler", "utils.threefry", "ops.cuda.fused_stack_packed"
                "data.dataset", "parallel.train_step", "train.trainer", "train.cli",
                "utils.subproc", "runtime.sidecar_replay", "models.summary", "models.benchmark",
                "parallel.mesh", "parallel.spatial", "parallel.inference", "parallel.dryrun",
-               "datagen.rgb444_flat", "datagen.prepare_groundtruth")
+               "datagen.rgb444_flat", "datagen.prepare_groundtruth", "nas.search",
+               "nas.fps_cache", "nas.studies", "nas.prune_failed", "nas.visualize",
+               "losses.vgg_selftrain", "export.onnx_dump", "export.onnx_svg",
+               "export.raw_runner")
 
 
 def test_port_chip_smoke_and_card_tests_import_no_jax():

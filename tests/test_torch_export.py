@@ -15,7 +15,9 @@ JAX package's, on the CPU.
 - the numpy runner gives JAX's runner's output;
 - the export CLI on a port checkpoint (``--device cpu``) writes a graph both
   importers read back to the checkpoint's (fused) weights;
-- the frame server resolves and serves every family.
+- the frame server resolves and serves every family;
+- ``onnx_dump`` and ``onnx_svg`` give JAX's text and SVG for every shipped
+  graph; ``raw_runner`` gives JAX's frame within 50 dB.
 """
 import glob
 import os
@@ -326,3 +328,70 @@ def test_chip_smoke_families_phase_on_the_cpu(monkeypatch):
     for r in rows:
         assert r["bound_ms"] > 0 and r["share_of_peak"] > 0
         assert r["profiled_kernel_ms"] is None  # no device: no device time
+
+
+# ---------------------------------------------------------------------------
+# the ONNX text dump, the SVG render and the raw-frame runner
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("path", ARTIFACTS)
+def test_onnx_dump_and_svg_equal_jax(path, tmp_path):
+    """Every shipped graph: the text dump (whole and cut at 5 nodes) and the
+    SVG equal JAX's, character for character."""
+    from fs_uae_image_enhancer_project_tpu.export import onnx_dump as jax_dump
+    from fs_uae_image_enhancer_project_tpu.export import onnx_svg as jax_svg
+    from fs_uae_image_enhancer_project_tpu_torch.export import onnx_dump, onnx_svg
+
+    full = os.path.join(REPO, path)
+    for max_nodes in (None, 5):
+        assert onnx_dump.dump(full, max_nodes) == jax_dump.dump(full, max_nodes)
+    got = onnx_svg.render_file(full, str(tmp_path / "port.svg"))
+    want = jax_svg.render_file(full, str(tmp_path / "jax.svg"))
+    with open(got) as a, open(want) as b:
+        text = a.read()
+        assert text == b.read()
+    assert text.startswith("<svg") and "Conv" in text and text.endswith("</svg>")
+
+
+def test_onnx_tools_command_lines(tmp_path, capsys):
+    from fs_uae_image_enhancer_project_tpu_torch.export import onnx_dump, onnx_svg
+
+    path = _artifact("conv3")
+    assert onnx_dump.main([path, "--max_nodes", "2"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith(f"model: {path}") and "more)" in out
+    svg = str(tmp_path / "g.svg")
+    assert onnx_svg.main([path, "--out", svg]) == 0
+    assert capsys.readouterr().out.strip() == svg and os.path.getsize(svg) > 1000
+
+
+def test_raw_runner_matches_jax(tmp_path, capsys):
+    """A seeded 752x576 raw RGBA dump through the shipped pix_shuffle graph:
+    the port's PNG on the CPU within the >= 50 dB contract of JAX's (the
+    alpha equal), the PNG holds the returned frame, and
+    a wrong byte count and a non-ONNX model raise."""
+    from PIL import Image
+
+    from fs_uae_image_enhancer_project_tpu.export import raw_runner as jax_raw
+    from fs_uae_image_enhancer_project_tpu_torch.export import raw_runner
+
+    frame = _frames((576, 752, 4), seed=3)
+    raw = str(tmp_path / "frame.raw")
+    frame.tofile(raw)
+    np.testing.assert_array_equal(raw_runner.load_raw_rgba(raw)[0], frame)
+    onnx = os.path.join(REPO, "artifacts", "model_pix_shuffle", "pix_shuffle.onnx")
+    png = str(tmp_path / "port.png")
+    assert raw_runner.main(["--model", onnx, "--raw", raw, "--out", png, "--device", "cpu"]) == 0
+    assert "wrote" in capsys.readouterr().out
+    got = np.asarray(Image.open(png))
+    want = jax_raw.run_inference(onnx, raw, str(tmp_path / "jax.png"), verbose=0)[0]
+    assert got.shape == want.shape == (576, 752, 4) and got.dtype == np.uint8
+    assert psnr(got[..., :3], want[..., :3]) >= 50.0
+    np.testing.assert_array_equal(got[..., 3], want[..., 3])
+    again = raw_runner.run_inference(onnx, raw, str(tmp_path / "again.png"), verbose=0,
+                                     device="cpu")
+    np.testing.assert_array_equal(again[0], got)
+    with pytest.raises(ValueError, match="bytes, expected"):
+        raw_runner.load_raw_rgba(raw, width=96, height=64)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        raw_runner.run_inference(str(tmp_path / "enhance.jaxexport"), raw, png, device="cpu")

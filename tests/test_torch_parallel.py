@@ -22,7 +22,8 @@ same numpy inputs and weights.
   sign;
 - conv3 under dp = 4 against JAX's BatchNorm setup: the loss, the parameters,
   Adam's moments and the BN running mean and var (statistics taken per rank
-  would miss);
+  would miss); and under dp 2 x sp 2, where each slab's statistics cover its
+  owned rows only (a halo counted would miss);
 - ``run_dryrun(4)``: a finite loss.
 
 The worker functions live here at module level, so the spawned children
@@ -291,8 +292,8 @@ def test_enhance_directory_matches_jax(devices8, tmp_path):
 # the train step
 # ---------------------------------------------------------------------------
 
-def _step_worker(name, jparams, lr, hr, sp, learning_rate):
-    mesh = M.make_mesh(RANKS, sp=sp, device="cpu")
+def _step_worker(name, jparams, lr, hr, sp, learning_rate, ranks=RANKS):
+    mesh = M.make_mesh(ranks, sp=sp, device="cpu")
     m = get_model(name)
     has_bn = name != "pix_shuffle"
     state = T.init_train_state(M.replicate(mesh, params_from_jax(jparams, device="cpu")),
@@ -310,7 +311,7 @@ def _step_worker(name, jparams, lr, hr, sp, learning_rate):
     return float(loss), _numpy(new.params), _numpy(new.buffers), _numpy(moments)
 
 
-def _jax_step(name, shape, seed, sp, learning_rate):
+def _jax_step(name, shape, seed, sp, learning_rate, n_devices=8):
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -326,7 +327,7 @@ def _jax_step(name, shape, seed, sp, learning_rate):
     rng = np.random.default_rng(seed)
     lr = rng.uniform(0, 1, shape).astype(np.float32)
     hr = rng.uniform(0, 1, shape).astype(np.float32)
-    mesh = make_mesh(8, sp=sp)
+    mesh = make_mesh(n_devices, sp=sp)
     opt = make_optimizer(lr=learning_rate)
     step = jax.jit(make_train_step(jm.apply, jc(dataclasses.replace(jm.loss, vgg_weight=0.0)),
                                    opt, has_batchnorm=has_bn, compute_dtype=jnp.float32,
@@ -383,6 +384,20 @@ def test_dp_batchnorm_statistics_match_jax(devices8):
     jparams, lr, hr, loss, params, buffers, moments = _jax_step("conv3", (2, 8, 16, 16, 3), 1,
                                                                 1, 1e-3)
     res = M.spawn_ranks(_step_worker, RANKS, ("conv3", jparams, lr, hr, 1, 1e-3),
+                        device="cpu", timeout=TIMEOUT)
+    assert sorted({k.split(".")[0] for k in buffers}) == ["bn1", "bn2", "bn3"]
+    _check_step(res, loss, params, buffers, moments)
+
+
+def test_sp_batchnorm_statistics_match_jax(devices8):
+    """conv3 (BatchNorm) on JAX's dp 4 x sp 2 mesh and the port's dp 2 x
+    sp 2 ranks, the same global batch of 8 in 2 micro-batches: each slab
+    takes its statistics over its owned rows (a 3-row halo each side of 8)
+    all-reduced over the whole mesh, so the running stats, the loss, the
+    parameters and Adam's moments are the global batch's, as in JAX."""
+    jparams, lr, hr, loss, params, buffers, moments = _jax_step("conv3", (2, 8, 16, 16, 3), 2,
+                                                                2, 1e-3)
+    res = M.spawn_ranks(_step_worker, RANKS, ("conv3", jparams, lr, hr, 2, 1e-3),
                         device="cpu", timeout=TIMEOUT)
     assert sorted({k.split(".")[0] for k in buffers}) == ["bn1", "bn2", "bn3"]
     _check_step(res, loss, params, buffers, moments)

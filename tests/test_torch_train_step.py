@@ -9,7 +9,9 @@ The same JAX-initialized weights and seeded batches through both steps:
   abs 1e-5;
 - the optimizer: 5 steps of seeded gradients with steps_per_epoch=2 against
   the optax chain, parameters within abs 1e-6;
-- a bf16 step: the loss within rel 2e-2 of JAX's bf16 loss.
+- a bf16 step: the loss within rel 2e-2 of JAX's bf16 loss;
+- conv3 under sp (a 1 x 2 mesh of gloo ranks) against JAX's step on its
+  1 x 2 mesh, at ``tests/test_torch_parallel.py``'s tolerances.
 """
 import numpy as np
 import optax
@@ -175,13 +177,25 @@ def test_the_step_never_calls_the_kernel_route(monkeypatch):
         assert not torch.equal(p.detach(), b)  # Adam moved every leaf
 
 
-def test_mesh_raises_and_state_round_trip():
-    # a BatchNorm model under sp > 1 (a 1 x 2 mesh; no process group needed
-    # to be refused) is the one mesh the step refuses
+def test_mesh_raises_and_state_round_trip(devices8):
+    """A BatchNorm model under sp (conv3 on a 1 x 2 mesh of gloo ranks, 2
+    micro-batches of 4) gives JAX's step on its 1 x 2 mesh: the loss and the
+    running stats within 1e-5, the parameters within 1e-5 and Adam's
+    moments within 1e-4 relative (the slabs' statistics over their owned
+    rows, all-reduced). Then the state's BN split and merge round trip."""
+    from test_torch_parallel import _check_step, _jax_step, _step_worker
+
+    from fs_uae_image_enhancer_project_tpu_torch.parallel.mesh import spawn_ranks
+
+    jparams, lr, hr, loss, params, buffers, moments = _jax_step(
+        "conv3", (2, 4, 16, 16, 3), 3, 2, 1e-3, n_devices=2)
+    res = spawn_ranks(_step_worker, 2, ("conv3", jparams, lr, hr, 2, 1e-3, 2),
+                      device="cpu", timeout=180.0)
+    _check_step(res, loss, params, buffers, moments)
+    # the 1 x 2 mesh without a process group is refused no more either
     mesh = Mesh(np.arange(2).reshape(1, 2), 0, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.make_train_step(lambda p, x: x, lambda y, t: y.mean(), has_batchnorm=True,
-                          mesh=mesh)
+    T.make_train_step(train_apply(get_model("conv3")), lambda y, t: y.mean(),
+                      has_batchnorm=True, mesh=mesh)
     m = get_model("conv5")
     params = m.init(torch.Generator().manual_seed(0), device="cpu")
     trainable, buffers = T.split_bn_buffers(params)

@@ -3,9 +3,11 @@
 fresh optimizer at the CSV's learning rate, the checkpoint round trip, the
 CSV loader on the committed histories (as the JAX package reads them), the
 first epoch's train loss against the JAX trainer (VGG off, fp32, JAX's
-initial weights, the same data seeds: rel 1e-3), and the CLI."""
+initial weights, the same data seeds: rel 1e-3), and the CLI, on one process
+and on a mesh of gloo ranks against JAX's CLI on its virtual mesh."""
 import csv
 import dataclasses
+import functools
 import glob
 import json
 import os
@@ -27,6 +29,7 @@ from fs_uae_image_enhancer_project_tpu_torch.data import (
 )
 from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
 from fs_uae_image_enhancer_project_tpu_torch.models import get_model
+from fs_uae_image_enhancer_project_tpu_torch.parallel import mesh as pm
 from fs_uae_image_enhancer_project_tpu_torch.parallel.train_step import (
     init_train_state,
     leaves,
@@ -230,16 +233,113 @@ def test_cli_trains_a_tiny_tree_on_the_cpu(tiny_dataset, tmp_path, capsys):
     assert [int(r[0]) for r in rows[1:]] == [1, 2, 3]
 
 
-def test_cli_refuses_sharding_and_a_missing_card(tiny_dataset, tmp_path, capsys):
-    base = _cli_args(tiny_dataset, str(tmp_path / "x"), "--epochs", "1")
-    assert cli.main(base + ["--n_devices", "2", "--device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    assert "parallel.dryrun" in err and "gloo" in err
-    assert cli.main(base + ["--spatial", "2", "--device", "cpu"]) == 1
+def _cli_resume_from(params, ckpt_dir, save):
+    """A stats CSV whose epoch-0 row names a checkpoint of ``params``: the
+    CLI then trains epoch 1 from those weights (resume), on either package."""
+    ckpt = os.path.join(ckpt_dir, "init_ckpt")
+    save(ckpt, params)
+    T.save_training_stats(os.path.join(ckpt_dir, "training_stats_conv3.csv"), 0,
+                          float("inf"), float("inf"), 0, 1e-3, ckpt)
+
+
+def _fp32_rank(args, train_pool, val_pool):
+    """``cli._train_rank`` with the trainer in fp32 (the CLI trains in bf16),
+    in a spawned rank."""
+    T.TrainerConfig = functools.partial(T.TrainerConfig, compute_dtype="float32")
+    return cli._train_rank(args, train_pool, val_pool)
+
+
+def test_cli_refuses_sharding_and_a_missing_card(devices8, tiny_dataset, tmp_path, capsys,
+                                                 monkeypatch):
+    """The CLI's mesh route against JAX's CLI. conv3 (BatchNorm, VGG on) from
+    JAX's initial weights (a resume of both CLIs), fp32, one Adam step an
+    epoch, a global batch of 2 x 2 micro-batches: at ``--n_devices 2`` (dp 2)
+    and at ``--n_devices 4 --spatial 2`` (dp 2 x sp 2, gloo ranks) the CSV's
+    losses within 1e-5 relative, the best checkpoint's parameters and running
+    stats within 1e-5, and Adam's moments within 1e-4 relative of JAX's CLI
+    on its dp 2 virtual mesh. (JAX's own dp 2 x sp 2 is not the reference
+    here: on crops of 32 rows or fewer, XLA's CPU partitioner gives another
+    loss for the sp-sharded VGG than its dp 2 and unsharded runs do.) Then
+    JAX's three refusals and the missing cards."""
+    from fs_uae_image_enhancer_project_tpu.parallel.train_step import (
+        init_train_state as jax_state,
+        make_optimizer as jax_optimizer,
+    )
+    from fs_uae_image_enhancer_project_tpu.train import cli as jax_cli
+
+    jparams = jax_model("conv3").init(jax.random.key(0))
+    flags = ["--model_type", "conv3", "--generator_train_dir", tiny_dataset,
+             "--crop_size", "16", "16", "--batch_size", "2", "--accumulation_steps", "2",
+             "--train_samples", "4", "--val_samples", "4", "--val_split_ratio", "0.34",
+             "--checkpoint_interval", "1", "--verbose", "0", "--epochs", "1"]
+    runs = {"jax": ["--n_devices", "2"], "dp2": ["--n_devices", "2"],
+            "dp2sp2": ["--n_devices", "4", "--spatial", "2"]}
+    for run, mesh_flags in runs.items():
+        d = str(tmp_path / run)
+        os.makedirs(d)
+        if run == "jax":
+            _cli_resume_from(jparams, d, lambda p, x: JT.save_checkpoint(
+                p, jax_state(x, jax_optimizer(steps_per_epoch=1), has_batchnorm=True)))
+            monkeypatch.setattr(JT, "TrainerConfig", functools.partial(
+                JT.TrainerConfig, compute_dtype="float32"))
+            # the port's ranks train in fp32 too, through the CLI's own launcher
+            spawn = pm.spawn_ranks
+            monkeypatch.setattr(pm, "spawn_ranks", lambda fn, *a, **kw: spawn(
+                _fp32_rank if fn is cli._train_rank else fn, *a, **kw))
+            assert jax_cli.main(flags + mesh_flags + ["--checkpoint_dir", d]) == 0
+        else:
+            _cli_resume_from(jparams, d, lambda p, x: T.save_checkpoint(p, init_train_state(
+                params_from_jax(jax.tree_util.tree_map(np.asarray, x), device="cpu"),
+                make_optimizer(), has_batchnorm=True)))
+            assert cli.main(flags + mesh_flags + ["--checkpoint_dir", d, "--device", "cpu"]) == 0
+    want_row = _rows(str(tmp_path / "jax" / "training_stats_conv3.csv"))[2]
+    jax_saved = JT.load_checkpoint(
+        str(tmp_path / "jax" / "checkpoint_best_conv3"),
+        jax_state(jparams, jax_optimizer(steps_per_epoch=1), has_batchnorm=True))
+    adam = next(s for s in jax_saved.opt_state if hasattr(s, "mu"))
+    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    want_leaves = jax.tree_util.tree_leaves(as_np(jax_saved.params))
+    want_bufs = jax.tree_util.tree_leaves(as_np(jax_saved.buffers))
+    want_moments = {"exp_avg": jax.tree_util.tree_leaves(as_np(adam.mu)),
+                    "exp_avg_sq": jax.tree_util.tree_leaves(as_np(adam.nu))}
+    for run in ("dp2", "dp2sp2"):
+        row = _rows(str(tmp_path / run / "training_stats_conv3.csv"))[2]
+        assert row[0] == want_row[0] == "1"
+        for col in (1, 2):  # the train and validation losses
+            assert float(row[col]) == pytest.approx(float(want_row[col]), rel=1e-5), (run, col)
+        saved = torch.load(str(tmp_path / run / "checkpoint_best_conv3" / T.CHECKPOINT_FILE),
+                           weights_only=True)
+        got = leaves(saved["params"])
+        assert len(got) == len(want_leaves)
+        for g, w in zip(got, want_leaves):  # both in sorted key order
+            np.testing.assert_allclose(g.numpy().reshape(w.shape), w, atol=1e-5, rtol=0)
+        for g, w in zip(leaves(saved["buffers"]), want_bufs):
+            np.testing.assert_allclose(g.numpy().reshape(w.shape), w, atol=1e-5, rtol=0)
+        state = saved["optimizer"]["state"]
+        for k, want in want_moments.items():
+            for i, w in enumerate(want):
+                np.testing.assert_allclose(state[i][k].numpy().reshape(w.shape), w, rtol=1e-4,
+                                           atol=1e-5 * np.abs(w).max(), err_msg=f"{run} {k} {i}")
+    capsys.readouterr()
+
+    # the mesh arithmetic, in JAX's words, before any work
+    base = _cli_args(tiny_dataset, str(tmp_path / "x"), "--epochs", "1", "--device", "cpu")
+    assert cli.main(base + ["--n_devices", "4", "--spatial", "3"]) == 1
+    assert "--spatial 3 must divide --n_devices 4" in capsys.readouterr().err
+    assert cli.main(base + ["--n_devices", "2"]) == 1  # batch 1 over dp 2
+    assert "must be divisible by the dp axis (2)" in capsys.readouterr().err
+    assert cli.main(base + ["--n_devices", "2", "--spatial", "2", "--crop_size", "16", "15"]) == 1
+    assert "crop height 15 must be divisible by --spatial 2" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "x")
+    # more ranks than cards: exit 1, never fewer ranks or the CPU
+    cards = torch.cuda.device_count()
+    assert cli.main(_cli_args(tiny_dataset, str(tmp_path / "y"), "--batch_size", "2",
+                              "--n_devices", str(cards + 2))) == 1
+    assert f"but only {cards} devices visible" in capsys.readouterr().err
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(base)
+        cli.main(_cli_args(tiny_dataset, str(tmp_path / "z"), "--epochs", "1"))
 
 
 def test_chip_smoke_train_phase_on_the_cpu(tmp_path):
@@ -287,3 +387,34 @@ def test_chip_smoke_train_phase_on_the_cpu(tmp_path):
                     rec["fp32_step"]["trained"], loss_rel_diff=2e-4))}):
         with pytest.raises(AssertionError):
             cs.check_train({**rec, **bad}, cpu)
+
+
+def test_chip_smoke_train_mesh_on_the_cpu(tmp_path):
+    """chip_smoke.py's mesh run of the train phase rehearsed on the CPU: a
+    gloo group of world size 1 (nccl on a card) over tcp://localhost, the
+    trainer on its 1x1 mesh gives the run without a mesh's checkpoint
+    (bit-equal here; 1e-6 the check) through the mesh path's collectives
+    (the state's broadcast, each step's and each validation batch's
+    all-reduces: a run without them fails the check), and the CLI asked for
+    one rank more than the cards visible exits 1 with JAX's message."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(0)
+    d = tmp_path / "tree" / "img_0"
+    d.mkdir(parents=True)
+    for loc in range(6):
+        base = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+        Image.fromarray(base).save(d / f"target_{loc * 8}_0_s0_r0.png")
+        Image.fromarray((base // 16) * 16).save(d / f"lores_{loc * 8}_0_s0_r0_rgb444_p16_dNone.png")
+    cpu = torch.device("cpu")
+    rec = cs.train_mesh(cpu, str(tmp_path / "tree"), crop=(32, 32))
+    cs.check_train_mesh(rec, cpu)
+    assert rec["max_abs_diff"] == 0.0 and rec["steps"] == [2, 2] and rec["leaves"] == 24
+    assert rec["collectives"] == {"broadcast": 24, "all_reduce": 2 * (24 + 1) + 2}
+    assert not torch.distributed.is_initialized()
+    json.dumps(rec)
+    for bad in ({"max_abs_diff": 2e-6}, {"k1_launches": 2}, {"backend": "nccl"},
+                {"collectives": {"broadcast": 0, "all_reduce": 0}},
+                {"cli_too_few_cards": dict(rec["cli_too_few_cards"], exit_code=0)}):
+        with pytest.raises(AssertionError):
+            cs.check_train_mesh({**rec, **bad}, cpu)
