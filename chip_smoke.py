@@ -110,11 +110,32 @@ Phases, each printing one JSON line with its wall time:
               pix_shuffle graph (its PNG byte-equal to enhance_from_onnx's
               frame, K1 once, counted from 0), onnx_dump and onnx_svg on
               that graph (one line and one box a node)
-15. kernel_bench  the two kernel benches (slice 3's main path), about a
+15. export    the torch.export route (slice 10): pix_shuffle, conv3_heavy and
+              the residual U-Net from their shipped graphs through
+              enhance_from_onnx, exported at 1x576x752 on the card with
+              export.stablehlo.export_enhance, loaded back in this process
+              (and pix_shuffle's in a child process that imports only the
+              port), byte-equal to the eager enhance on 8 seeded frames; K1
+              (the custom op torch.ops.fse.fused_stack) once a pix_shuffle
+              call, never for the others, counted from 0; the text dump
+              names the op once; ms a frame loaded against eager
+16. int8      slice 10's int8 path: quantized._qconv's int32 accumulators
+              on the card equal to the CPU's on one conv3_heavy frame, layer
+              by layer; then scripts/bench_int8_qat.py's study (conv3_heavy
+              PTQ and QAT at 300 steps, pix_shuffle PTQ: min PSNR against
+              the fp32 enhance over the eight committed frames; the
+              distillation loss; ms a frame bf16 against int8, and K1
+              against eager bf16 against int8 for pix_shuffle)
+17. benchmark_tools  the four design tools (slice 10) on reduced grids,
+              about 0.05 s a case: the activations' fwd and fwd+bwd at
+              1x288x376x36, the conv grid at kernels 1-5 x 12/36/72
+              channels, the equal-latency search for kernels 1 and 5, the
+              gamma curves' errors and SVG
+18. kernel_bench  the two kernel benches (slice 3's main path), about a
               second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-16. timing    K1's and K2's device time a call (median, min and max of 3
+19. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -124,13 +145,16 @@ Phases, each printing one JSON line with its wall time:
               eager torch.matmul chain (chain_ms); of K3, its plain version,
               cdist + topk, the batched k-means; of every family (ms a
               frame from CUDA events, device ms a frame, GFLOP a frame from
-              the shapes, share of the bf16 peak, the kernels cuDNN ran)
+              the shapes, share of the bf16 peak, the kernels cuDNN ran); K1's
+              custom op against its direct call (the host's µs a call, the
+              pix_shuffle enhance's ms with either), which decides the served
+              path
     turns     with --parent DIR (another checkout, e.g. the parent commit
               unpacked with git archive under build/): K3 and K4 of both
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-17. kernels   every kernel launched, held against its plain version
+20. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -203,6 +227,18 @@ NAS_STUDY, NAS_TRIALS, NAS_CROP = "prune_act_r2", 4, (128, 96)
 # the VGG self-training's learning rate: the peak of the committed asset's
 # run (scripts/train_vgg_features.py --lr)
 VGG_LR = 2e-4
+
+# slice 10: the exported families, frames a round trip checks, the study's
+# QAT steps and seconds a timed int8 variant, and the served path's choice
+# for K1's custom op (more than this share of the enhance's ms keeps the
+# direct call)
+EXPORT_FAMILIES = ("pix_shuffle", "conv3_heavy", "residual_unet")
+EXPORT_FRAMES = 8
+INT8_QAT_STEPS, INT8_DURATION_S = 300, 1.0
+OP_SHARE_LIMIT = 0.05
+
+# a child that imports only the port: load the artifact, enhance the frames,
+# save them and K1's launches
 
 _phase = "start"
 
@@ -1791,6 +1827,245 @@ def check_parallel_tools(rec: dict, dev) -> None:
               f"split at sp {s['sp']}: K1 launched {launches}")
 
 
+EXPORT_CHILD = """
+import sys
+import numpy as np
+from fs_uae_image_enhancer_project_tpu_torch.export.stablehlo import load_enhance
+from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+path, frames, out, device = sys.argv[1:5]
+enhance = load_enhance(path, device=device)
+x = np.load(frames)
+fs.fused_stack.launches = 0
+y = np.stack([enhance(x[i:i + 1]).cpu().numpy()[0] for i in range(len(x))])
+np.savez(out, frames=y, k1_launches=fs.fused_stack.launches,
+         jax_loaded=any(m.split(".")[0] == "jax" for m in sys.modules))
+"""
+
+
+def export_phase(dev, frame_hw=(576, 752), n_frames: int = EXPORT_FRAMES) -> dict:
+    """Slice 10's export route: each family of ``EXPORT_FAMILIES`` from its
+    shipped graph (``enhance_from_onnx``) exported with
+    ``export.stablehlo.export_enhance`` at 1 x frame_hw on ``dev``, loaded
+    back in this process (K1's launches counted from 0) and, for
+    pix_shuffle, in a child process that imports only the port; the frames
+    against the eager enhance's on ``n_frames`` seeded frames; the text dump's
+    K1 op nodes; ms a frame of the loaded program against the eager
+    enhance (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.export import stablehlo
+    from fs_uae_image_enhancer_project_tpu_torch.export.enhance import enhance_from_onnx
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+
+    h, w = frame_hw
+    frames = np.random.default_rng(11).integers(0, 256, (n_frames, h, w, 4), dtype=np.uint8)
+    frame_dev = torch.from_numpy(frames[:1]).to(dev)
+    rec: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fam in EXPORT_FAMILIES:
+            enhance = enhance_from_onnx(family_artifact(fam), device=dev)
+            path = os.path.join(tmp, f"{fam}.pt2")
+            t0 = time.perf_counter()
+            stablehlo.export_enhance(enhance, path, frame_h=h, frame_w=w, device=dev)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = stablehlo.load_enhance(path, device=dev)
+            load_s = time.perf_counter() - t0
+            want = np.stack([enhance(frames[i:i + 1]).cpu().numpy()[0] for i in range(n_frames)])
+            fs.fused_stack.launches = 0
+            got = np.stack([loaded(frames[i:i + 1]).cpu().numpy()[0] for i in range(n_frames)])
+            r = dict(export_s=export_s, load_s=load_s, bytes=os.path.getsize(path),
+                     k1_launches=fs.fused_stack.launches, calls=n_frames,
+                     byte_equal=bool(np.array_equal(got, want)),
+                     differing=int((got != want).sum()),
+                     ms_loaded=median_ms(lambda: loaded(frame_dev)),
+                     ms_eager=median_ms(lambda: enhance(frame_dev)))
+            if fam == "pix_shuffle":
+                text = stablehlo.stablehlo_text(enhance, frame_h=h, frame_w=w, device=dev)
+                r["text_op_nodes"] = text.count("torch.ops.fse.fused_stack.default(")
+                npy, out = os.path.join(tmp, "frames.npy"), os.path.join(tmp, "child.npz")
+                np.save(npy, frames)
+                env = dict(os.environ, PYTHONPATH=REPO)
+                t0 = time.perf_counter()
+                proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, path, npy, out,
+                                       dev.type], cwd=REPO, env=env, capture_output=True,
+                                      text=True, timeout=240)
+                check(proc.returncode == 0, f"the export child failed: {proc.stderr[-2000:]}")
+                child = np.load(out)
+                r["child"] = dict(seconds=time.perf_counter() - t0,
+                                  k1_launches=int(child["k1_launches"]),
+                                  byte_equal=bool(np.array_equal(child["frames"], want)),
+                                  jax_loaded=bool(child["jax_loaded"]))
+            rec[fam] = r
+    return rec
+
+
+def check_export(rec: dict, dev) -> None:
+    # on the CPU the served pix_shuffle route is the eager forward: no K1
+    per_call = 1 if dev.type == "cuda" else 0
+    for fam, r in rec.items():
+        check(r["byte_equal"], f"export {fam}: the loaded program differs from the eager "
+                               f"enhance in {r['differing']} values")
+        want = per_call * r["calls"] if fam == "pix_shuffle" else 0
+        check(r["k1_launches"] == want, f"export {fam}: K1 {r['k1_launches']} launches, not {want}")
+    p = rec["pix_shuffle"]
+    check(p["text_op_nodes"] == per_call, f"export: {p['text_op_nodes']} K1 op nodes in the text")
+    c = p["child"]
+    check(c["byte_equal"] and not c["jax_loaded"] and c["k1_launches"] == per_call * p["calls"],
+          f"export: the child process's load: {c}")
+
+
+def int8_phase(dev, qat_steps: int = INT8_QAT_STEPS, duration_s: float = INT8_DURATION_S,
+               frame_hw=None, crop: int = 256) -> dict:
+    """Slice 10's int8 path: the int32 accumulators of ``quantized._qconv``
+    on ``dev`` against the CPU's, layer by layer of conv3_heavy's int8 PTQ
+    forward on the first study frame (the codes of each layer's input from
+    the device's forward); then the study of
+    ``scripts/bench_int8_qat.py`` (PTQ and QAT quality, bf16 against int8
+    ms a frame; K1's launches counted from 0)."""
+    import numpy as np
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.export import qat
+    from fs_uae_image_enhancer_project_tpu_torch.export import quantized as q
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_import import import_any
+    from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.scripts import bench_int8_qat as study
+
+    imp = import_any(family_artifact("conv3_heavy"))
+    qp = qat.quantize_conv_stack(params_from_jax(imp.params, device=dev))
+    x = torch.from_numpy(study.load_samples(frame_hw)[0][None]).to(dev, torch.bfloat16)
+    layers = []
+    with torch.no_grad():
+        for i in range(imp.num_conv_layers):
+            p = qp[f"conv{i + 1}"]
+            scale = float(x.float().abs().max()) / 127.0
+            codes = q.quantize_act(x, scale)
+            acc = q.qconv_acc(p["w_q"], codes)
+            acc_cpu = q.qconv_acc(p["w_q"].cpu(), codes.cpu())
+            layers.append(dict(k=int(np.prod(p["w_q"].shape[:3])), cout=int(p["w_q"].shape[3]),
+                               equal=bool(torch.equal(acc.cpu(), acc_cpu)),
+                               max_abs_acc=int(acc_cpu.abs().max())))
+            x = torch.relu(q._qconv(p, x, scale))
+    fs.fused_stack.launches = 0
+    t0 = time.perf_counter()
+    report = study.run(dev, qat_steps=qat_steps, duration_s=duration_s, frame_hw=frame_hw,
+                       crop=crop)
+    return dict(accumulators=layers, study=report, study_s=time.perf_counter() - t0,
+                k1_launches=fs.fused_stack.launches)
+
+
+def check_int8(rec: dict, dev) -> None:
+    check(all(r["equal"] for r in rec["accumulators"]),
+          f"int8: the card's int32 accumulators differ from the CPU's: {rec['accumulators']}")
+    c3, ps = rec["study"]["conv3_heavy"], rec["study"]["pix_shuffle"]
+    for name, v in (("conv3_heavy PTQ", c3["ptq_min_psnr_db"]),
+                    ("conv3_heavy QAT", c3["qat_min_psnr_db"]),
+                    ("pix_shuffle PTQ", ps["ptq_min_psnr_db"])):
+        check(math.isfinite(v) and v > 20.0, f"int8: {name} min PSNR {v} dB")
+    check(math.isfinite(c3["distill_loss_last"]), f"int8: distillation loss {c3}")
+    times = list(c3["ms_per_frame"].values()) + list(ps["ms_per_frame"].values())
+    check(all(math.isfinite(t) and t > 0 for t in times), f"int8: times {times}")
+    if dev.type == "cuda":
+        check(rec["k1_launches"] > 0, "int8: the study's K1 enhance did not launch K1")
+
+
+def benchmark_tools_phase(dev, duration_s: float = 0.05, shape=(288, 376),
+                          act_shape=(1, 288, 376, 36)) -> dict:
+    """Slice 10's four design tools on a reduced grid, about ``duration_s``
+    a case: every activation's forward and backward at ``act_shape``; the
+    conv grid at kernels 1-5 x channels 12, 36, 72 at ``shape``; the
+    equal-latency search for kernels 1 and 5 against the 3x3, 36-channel
+    conv; the gamma curves' errors and their SVG."""
+    import contextlib
+    import io
+
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.benchmark_tools import (
+        benchmark_activation_functions as acts,
+        benchmark_kernel_sizes as ks,
+        benchmark_search_channels as sc,
+        gamma_plot,
+    )
+
+    out, rec = io.StringIO(), {}
+    with contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        table = acts.activation_table([act_shape], dtype=torch.bfloat16, device=dev,
+                                      duration_s=duration_s, chunk=20)
+        rec["activations"] = dict(seconds=time.perf_counter() - t0,
+                                  table=table["x".join(map(str, act_shape))])
+        t0 = time.perf_counter()
+        rows = ks.kernel_table(*shape, dtype=torch.bfloat16, duration_s=duration_s, chunk=20,
+                               device=dev, kernels=[1, 2, 3, 4, 5], channels=[12, 36, 72])
+        rec["kernel_sizes"] = dict(seconds=time.perf_counter() - t0, rows=rows)
+        t0 = time.perf_counter()
+        found = sc.search(3, 36, (1, 5), 72, *shape, dtype=torch.bfloat16, duration=duration_s,
+                          device=dev, hi=256)
+        rec["search_channels"] = dict(seconds=time.perf_counter() - t0, **found)
+        t0 = time.perf_counter()
+        err = gamma_plot.errors(device=dev)
+        svg = gamma_plot.render_svg(device=dev)
+        rec["gamma"] = dict(seconds=time.perf_counter() - t0, svg_bytes=len(svg),
+                            polylines=svg.count("<polyline"),
+                            max_err={d: {k: float(v.max()) for k, v in e.items()}
+                                     for d, e in err.items()})
+    return rec
+
+
+def check_benchmark_tools(rec: dict) -> None:
+    a = rec["activations"]["table"]
+    check(a and all(v["fwd_us"] > 0 and v["fwd_bwd_us"] > 0 for v in a.values()),
+          f"benchmark_activation_functions: {a}")
+    rows = rec["kernel_sizes"]["rows"]
+    check(len(rows) == 15 and all(r["ms"] > 0 for r in rows),
+          f"benchmark_kernel_sizes: {rows}")
+    s = rec["search_channels"]
+    check(s["reference_ms"] > 0 and sorted(s["iso_latency_channels"]) == [1, 5],
+          f"benchmark_search_channels: {s}")
+    g = rec["gamma"]
+    check(g["polylines"] == 10 and all(e["fp32"] < 0.05 and e["bf16"] < 0.05
+                                       for e in g["max_err"].values()), f"gamma_plot: {g}")
+
+
+def op_dispatch(dev, enhance_direct, enhance_op, u, sw, frame_dev, rounds: int = 4) -> dict:
+    """K1's custom op against its direct call: the host's µs a call (200
+    calls queued without a synchronise) and the pix_shuffle enhance's ms a
+    frame (CUDA-event medians) with the stack called either way, in
+    alternating rounds; the op's share of the enhance's ms decides the
+    served path (``OP_SHARE_LIMIT``)."""
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+
+    def host_us(fn, n=200):
+        fn()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        _sync(dev)
+        return t / n * 1e6
+
+    direct = lambda: fs.fused_stack(u, sw)  # noqa: E731
+    op = lambda: torch.ops.fse.fused_stack(u, *sw.frags, sw.prm)  # noqa: E731
+    rec = {k: [] for k in ("host_us_direct", "host_us_op", "enhance_ms_direct", "enhance_ms_op")}
+    for _ in range(rounds):
+        rec["host_us_direct"].append(host_us(direct))
+        rec["host_us_op"].append(host_us(op))
+        rec["enhance_ms_direct"].append(median_ms(lambda: enhance_direct(frame_dev), n=100))
+        rec["enhance_ms_op"].append(median_ms(lambda: enhance_op(frame_dev), n=100))
+    mean = {k: statistics.mean(v) for k, v in rec.items()}
+    share = (mean["enhance_ms_op"] - mean["enhance_ms_direct"]) / mean["enhance_ms_direct"]
+    return dict(rec, dispatch_us=mean["host_us_op"] - mean["host_us_direct"],
+                op_share_of_enhance=share, share_limit=OP_SHARE_LIMIT,
+                served_path="direct" if share > OP_SHARE_LIMIT else "op")
+
+
 def _counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
@@ -2075,7 +2350,28 @@ def main(argv=None) -> int:
     emit("tools", t0, **tools_rec, nvidia_smi=smi)
     check_tools(tools_rec, dev)
 
-    # 15. kernel_bench: slice 3's main path, every counter from 0
+    # 15. export: slice 10's torch.export route (K1 as the custom op)
+    _phase = "export"
+    t0 = time.perf_counter()
+    exp = export_phase(dev)
+    emit("export", t0, families=exp, nvidia_smi=smi)
+    check_export(exp, dev)
+
+    # 16. int8: slice 10's int8 path and the study
+    _phase = "int8"
+    t0 = time.perf_counter()
+    i8 = int8_phase(dev)
+    emit("int8", t0, **i8, nvidia_smi=smi)
+    check_int8(i8, dev)
+
+    # 17. benchmark_tools: slice 10's four design tools, reduced grids
+    _phase = "benchmark_tools"
+    t0 = time.perf_counter()
+    bt = benchmark_tools_phase(dev)
+    emit("benchmark_tools", t0, **bt, nvidia_smi=smi)
+    check_benchmark_tools(bt)
+
+    # 18. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -2085,7 +2381,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 16. timing at the main paths' shapes
+    # 19. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -2121,6 +2417,13 @@ def main(argv=None) -> int:
           "K3 differs from its plain version on the generator's crops and palettes")
     fam_rows = family_timing(dev, fam["fns"], fam["frame"],
                              {k: r["gflop"] for k, r in fam["families"].items()})
+    enhance_op = make_enhance_fn(
+        lambda p, x: fs.apply_stack(
+            lambda u_, sw_: torch.ops.fse.fused_stack(u_, *sw_.frags, sw_.prm),
+            fs.prepare_weights_cached, p, x, None),
+        params, crop_left=imp.crop_left, srgb_to_linear_exponent=imp.srgb_to_linear_exponent,
+        linear_to_srgb_exponent=imp.linear_to_srgb_exponent, device=dev)
+    dispatch = op_dispatch(dev, enhance, enhance_op, u, sw, frame_dev)
     emit("timing", t0, shape=[h2, w2, 12], gflop=flops / 1e9, mbytes=nbytes / 1e6,
          k1_ms=k1_ms, k1_device=k1_dev, k1_again_device=k1_again, k1_call_ms=k1_call_ms,
          bound_ms=bound_ms, share_of_bound=bound_ms / k1_ms,
@@ -2132,7 +2435,7 @@ def main(argv=None) -> int:
          enhance_device_ms=enhance_dev,
          enhance_fps=1e3 / enhance_ms, k3_shape=list(dg["arrs"].shape), k3=k3_rows,
          kmeans_ms=kmeans_ms, datagen_styled_crops_per_s=dg["styled_crops_per_s"],
-         families=fam_rows, nvidia_smi=smi)
+         families=fam_rows, op_dispatch=dispatch, nvidia_smi=smi)
 
     # turns: K3 and K4 against another tree's, in child processes
     if args.parent:
@@ -2152,7 +2455,7 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 17. kernels
+    # 20. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
@@ -2161,6 +2464,9 @@ def main(argv=None) -> int:
         parallel_tools_launches=ptools["launches"],
         train_mesh_validation_launches=trn["mesh"]["k1_launches"],
         raw_runner_launches=tools_rec["raw_runner"]["k1_launches"],
+        export_launches=exp["pix_shuffle"]["k1_launches"],
+        export_child_launches=exp["pix_shuffle"]["child"]["k1_launches"],
+        int8_study_launches=i8["k1_launches"],
         max_abs_err=k1_err, ms=k1_ms, kernel_ms=k1_ms,
         plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms),

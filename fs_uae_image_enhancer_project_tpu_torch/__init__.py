@@ -37,8 +37,17 @@ What is ported, by slice:
    (``export.raw_runner``, K1 for pix_shuffle) and the ONNX text and SVG
    tools (``export.onnx_dump``, ``export.onnx_svg``).
 
-Still to come: ``torch.export`` for the JAX package's StableHLO export, and
-tooling (ROADMAP.md).
+10. the last missing modules: the enhance as a ``torch.export`` program with
+   the fused-stack kernel as the custom op ``torch.ops.fse.fused_stack``
+   (``export.stablehlo``, the export CLI's ``--stablehlo``, ``raw_runner``'s
+   ``.pt2`` route), the int8 PTQ/QAT path (``export.quantized``,
+   ``export.qat``, measured by ``scripts.bench_int8_qat``), the bench lock
+   (``utils.platform``) and the design benchmarks (``benchmark_tools``).
+
+The port now does all that the JAX package does. Two JAX modules keep no
+counterpart: ``utils/compile_cache.py`` (the hash-keyed nvcc cache of
+``ops/cuda/build.py`` stands for it) and ``honor_jax_platforms_env`` of
+``utils/platform.py`` (the port names its device explicitly).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 :func:`resolve_device` raises when a card is asked for (or implied) and

@@ -10,7 +10,11 @@ family (conv3/conv5 fused first) with ``export.onnx_export``, verifies the
 graph with the numpy runner on a random uint8 frame (the full frame for
 pix_shuffle, a 160x160 graph with the same weights for the rest) and
 cross-checks it against the port's own fp32 enhance on ``--device``. It exits
-1 under 40 dB. The JAX CLI's ``--stablehlo`` has no counterpart yet.
+1 under 40 dB. ``--stablehlo PATH`` also writes the enhance as a
+``torch.export`` program (``export.stablehlo``, a ``.pt2`` file; the flag
+keeps the JAX CLI's name), for ``--device``, with the ONNX graph's
+per-family semantics: the conv stacks fused in the sRGB domain, the crop for
+pix_shuffle and the U-Net only.
 """
 from __future__ import annotations
 
@@ -32,6 +36,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "conv3", "conv3_heavy", "conv5", "conv5_heavy",
                              "conv6", "residual_unet"])
     ap.add_argument("--output", required=True, help=".onnx output path")
+    ap.add_argument("--stablehlo", default=None,
+                    help="optional output path of the port's torch.export artifact (.pt2) "
+                         "of the enhance on --device")
     ap.add_argument("--crop_left", type=int, default=16,
                     help="left crop in px (the crop-16 contract)")
     ap.add_argument("--fp32", action="store_true", help="export fp32 (default fp16)")
@@ -39,9 +46,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu, for the cross-check's enhance")
     args = ap.parse_args(argv)
-
-    import numpy as np
-    import torch
 
     from .. import resolve_device
     from ..interop import params_to_numpy
@@ -55,7 +59,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         export_pix_shuffle_onnx,
         export_residual_unet_onnx,
     )
-    from .onnx_runner import verify_onnx_model
 
     device = resolve_device(args.device)
     m = get_model(args.model_type)  # resolves the '<name>_heavy' aliases
@@ -79,8 +82,31 @@ def main(argv: Optional[List[str]] = None) -> int:
         exporter, kw = export_residual_unet_onnx, dict(crop_left=args.crop_left)
     out = exporter(export_params, m.config, args.output, fp16=fp16, **kw)
     print(f"wrote {out}")
-    if args.skip_verify:
-        return 0
+    if not args.skip_verify:
+        rc = _verify(args, m, params, exporter, kw, export_params, out, fp16, srgb, device)
+        if rc:
+            return rc
+    if args.stablehlo:
+        from .stablehlo import export_enhance
+
+        crop = args.crop_left if m.name in ("pix_shuffle", "residual_unet") else 0
+        apply = (lambda p, x: apply_fused(p, x, m.config)) if srgb else m.apply  # noqa: E731
+        enhance = make_enhance_fn(apply, params, crop_left=crop, srgb_domain=srgb,
+                                  device=device)
+        export_enhance(enhance, args.stablehlo, device=device)
+        print(f"wrote {args.stablehlo} (crop_left={crop}, srgb={srgb}, device={device.type})")
+    return 0
+
+
+def _verify(args, m, params, exporter, kw, export_params, out, fp16, srgb, device) -> int:
+    """The ONNX graph through the numpy runner against the port's fp32
+    enhance; 1 under ``MIN_PSNR_DB``."""
+    import numpy as np
+    import torch
+
+    from ..models.conv_stack import apply_fused
+    from .enhance import make_enhance_fn
+    from .onnx_runner import verify_onnx_model
 
     if m.name == "pix_shuffle":
         outs = verify_onnx_model(out)

@@ -7,9 +7,9 @@ counterpart of the reference's
 enhance, saves the uint8 RGBA result as PNG. The model is a shipped or
 exported ``.onnx`` graph, run through :func:`.enhance.enhance_from_onnx`
 (the lightweight pix_shuffle graph launches the fused-stack kernel K1 on a
-card). The JAX package's second route, a ``jax.export`` artifact, has no
-torch counterpart yet (``torch.export``, ROADMAP.md): any other model path
-raises.
+card), or a ``.pt2`` program of :func:`.stablehlo.export_enhance` (the
+counterpart of the JAX package's ``jax.export`` route), run through
+:func:`.stablehlo.load_enhance`. Any other model path raises.
 
     python -m fs_uae_image_enhancer_project_tpu_torch.export.raw_runner \\
         --model artifacts/model_pix_shuffle/pix_shuffle.onnx --raw F.raw --out F.png
@@ -46,14 +46,19 @@ def run_inference(model_path: str, raw_path: str, out_path: str, verbose: int = 
                   device=None) -> np.ndarray:
     """raw RGBA file -> enhance on ``device`` (default ``cuda``) -> RGBA PNG;
     returns the (1, H, W, 4) uint8 frame."""
-    if not model_path.endswith(".onnx"):
-        raise ValueError(
-            f"{model_path}: the port runs .onnx graphs only; the JAX package's "
-            "jax.export artifacts wait for the port's torch.export route (ROADMAP.md)")
-    from .enhance import enhance_from_onnx
+    if model_path.endswith(".onnx"):
+        from .enhance import enhance_from_onnx
 
+        enhance = enhance_from_onnx(model_path, device=device)
+    elif model_path.endswith(".pt2"):
+        from .stablehlo import load_enhance
+
+        enhance = load_enhance(model_path, device=device)
+    else:
+        raise ValueError(
+            f"{model_path}: the port runs .onnx graphs and .pt2 torch.export programs "
+            "(export.stablehlo); a jax.export artifact runs in the JAX package only")
     frame = load_raw_rgba(raw_path)
-    enhance = enhance_from_onnx(model_path, device=device)
     out = enhance(frame).cpu().numpy()
     save_rgba_png(out[0], out_path)
     if verbose:
@@ -65,7 +70,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Raw framebuffer -> enhanced PNG")
-    ap.add_argument("--model", required=True, help=".onnx graph")
+    ap.add_argument("--model", required=True, help=".onnx graph or .pt2 program")
     ap.add_argument("--raw", required=True, help="raw 752x576x4 RGBA file")
     ap.add_argument("--out", required=True, help="output PNG path")
     ap.add_argument("--device", default="cuda",

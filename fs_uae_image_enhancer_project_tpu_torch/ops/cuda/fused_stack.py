@@ -11,6 +11,16 @@ and relu.
 - :func:`fused_stack` is the kernel's wrapper. A CUDA tensor launches the
   kernel (or raises); a CPU tensor takes :func:`fused_stack_plain`. Its
   launches are counted in ``fused_stack.launches``.
+- ``torch.ops.fse.fused_stack`` is the same kernel as a registered custom op
+  over tensors only (``u``, the seven fragment tensors, ``prm``), the form
+  ``torch.export`` keeps in an exported program (``export/stablehlo.py``):
+  its fake implementation gives the shape, its CUDA implementation checks
+  the input, launches the kernel and counts the launch (when the program
+  runs, not when it is traced), and its CPU implementation is the plain
+  version, on weights read back from the fragments. It has no autograd
+  formula: K1 has no backward. :func:`fused_stack` takes the op while
+  ``torch.export`` or ``torch.compile`` traces it, and calls the kernel
+  directly otherwise.
 - :func:`fused_stack_plain` is the same function in eager torch: convs via
   ``F.conv2d`` in fp32 on the same bf16-rounded input and weights, fp32
   activations, each layer's output rounded to bf16 where the kernel stores it
@@ -311,24 +321,74 @@ def kernel_info(entry: str, device=0, lib=None) -> dict:
     return dict(zip(INFO_KEYS, out))
 
 
-def fused_stack(u: torch.Tensor, sw: StackWeights) -> torch.Tensor:
-    """K1's wrapper: (H2, W2, 12) or (N, H2, W2, 12) bf16 -> the same shape.
-
-    A CUDA tensor launches the kernel on the current stream (no synchronise,
-    no allocation inside the kernel; one launch for the whole batch); a CPU
-    tensor takes the plain version.
-    """
-    if u.device.type == "cpu":
-        return fused_stack_plain(u, sw)
-    if u.device.type != "cuda":
-        raise ValueError(f"fused_stack runs on cuda or cpu, got {u.device}")
+def _launch_k1(u: torch.Tensor, sw: StackWeights) -> torch.Tensor:
     check_input(u, sw, "fused_stack")
     out = launch_stack("fse_fused_stack", u, sw)
     fused_stack.launches += 1
     return out
 
 
+def fused_stack(u: torch.Tensor, sw: StackWeights) -> torch.Tensor:
+    """K1's wrapper: (H2, W2, 12) or (N, H2, W2, 12) bf16 -> the same shape.
+
+    A CUDA tensor launches the kernel on the current stream (no synchronise,
+    no allocation inside the kernel; one launch for the whole batch); a CPU
+    tensor takes the plain version. Under ``torch.export`` (or
+    ``torch.compile``) it records the custom op ``torch.ops.fse.fused_stack``
+    instead, which does the same when the traced program runs.
+    """
+    if torch.compiler.is_compiling():
+        return torch.ops.fse.fused_stack(u, *sw.frags, sw.prm)
+    if u.device.type == "cpu":
+        return fused_stack_plain(u, sw)
+    if u.device.type != "cuda":
+        raise ValueError(f"fused_stack runs on cuda or cpu, got {u.device}")
+    return _launch_k1(u, sw)
+
+
 fused_stack.launches = 0
+
+
+def plain_from_fragments(frags) -> Tuple[torch.Tensor, ...]:
+    """The plain version's OIHW fp32 weights read back from K1's B fragments
+    (the inverse of :func:`fragments` and of the per-source row layout): the
+    bf16-rounded weights :func:`prepare_weights` gives, bit for bit."""
+    out = []
+    for (_name, sources, cout, cout_pad), f in zip(LAYERS, frags):
+        rows = sum(9 * cin_pad for _c, cin_pad in sources)
+        ks, nt = -(-rows // 16), cout_pad // 8
+        k = f.float().reshape(ks, nt, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2).reshape(
+            ks * 16, cout_pad)
+        parts, r0 = [], 0
+        for cin, cin_pad in sources:
+            taps = k[r0:r0 + 9 * cin_pad].reshape(3, 3, cin_pad, cout_pad)
+            parts.append(taps[:, :, :cin, :cout])
+            r0 += 9 * cin_pad
+        out.append(torch.cat(parts, dim=2).permute(3, 2, 0, 1).contiguous())
+    return tuple(out)
+
+
+@torch.library.custom_op("fse::fused_stack", mutates_args=(), device_types="cuda")
+def fused_stack_op(u: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor, f3: torch.Tensor,
+                   f4: torch.Tensor, f5: torch.Tensor, f6: torch.Tensor, f7: torch.Tensor,
+                   prm: torch.Tensor) -> torch.Tensor:
+    """K1 as a custom op: launches the kernel (or raises) and counts it. An
+    exported graph may hand it a strided view where the trace saw a
+    contiguous tensor (``torch.export`` drops a ``contiguous()`` it judges a
+    no-op), so the input is made contiguous here; outside a trace it already
+    is, and nothing is copied."""
+    return _launch_k1(u.contiguous(), StackWeights((f1, f2, f3, f4, f5, f6, f7), (), prm))
+
+
+@fused_stack_op.register_kernel("cpu")
+def _fused_stack_op_cpu(u, f1, f2, f3, f4, f5, f6, f7, prm):
+    frags = (f1, f2, f3, f4, f5, f6, f7)
+    return fused_stack_plain(u, StackWeights(frags, plain_from_fragments(frags), prm))
+
+
+@fused_stack_op.register_fake
+def _fused_stack_op_fake(u, f1, f2, f3, f4, f5, f6, f7, prm):
+    return torch.empty_like(u)
 
 
 def check_model_input(x: torch.Tensor, cfg) -> None:

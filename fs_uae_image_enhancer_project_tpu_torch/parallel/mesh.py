@@ -237,12 +237,14 @@ def _rank_main(rank, call_path, n, init_method, device, results) -> None:
     results.put((rank, out))
 
 
-def spawn_ranks(fn: Callable, n: int, args: Sequence = (), *, device="cpu",
+def spawn_ranks(fn: Callable, n: int, args: Sequence = (), *, device=None,
                 timeout: float = 300.0) -> list:
     """Run ``fn(*args)`` in ``n`` spawned processes, rank 0 to n-1, each in
     one process group (:func:`init_process_group` with the device's backend,
     a rendezvous file in a fresh temporary directory) and return the ranks'
-    results in rank order. ``fn`` and its results must pickle.
+    results in rank order. ``fn`` and its results must pickle. ``device``
+    defaults to ``cuda`` (nccl; raises without a card); pass ``"cpu"`` for
+    gloo processes on the CPU.
 
     At the first rank that fails, ``torch.multiprocessing``'s
     ``ProcessContext.join`` stops the others and raises with that rank's
@@ -250,6 +252,7 @@ def spawn_ranks(fn: Callable, n: int, args: Sequence = (), *, device="cpu",
     and the call raises ``TimeoutError``."""
     import torch.multiprocessing as mp
 
+    device = resolve_device(device)
     results = mp.get_context("spawn").Queue()
     tmp = tempfile.mkdtemp(prefix="fse_ranks_")
     # the call goes through a file, not the children's start-up pipes: a

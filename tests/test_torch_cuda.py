@@ -381,3 +381,53 @@ def test_train_step_on_the_card_never_launches_k1(cuda):
     with torch.no_grad():
         m.apply(state.params, x[0].to(torch.bfloat16))
     assert fs.fused_stack.launches == before + 1
+
+
+def test_custom_op_launches_k1_and_counts(cuda):
+    """K1 as ``torch.ops.fse.fused_stack``: the same output as the direct
+    wrapper, one launch a call, a strided input made contiguous, and a
+    wrong dtype raises (no fallback)."""
+    sw = fs.prepare_weights(_params(cuda), cuda)
+    u = torch.rand(2, 40, 56, 12, generator=torch.Generator().manual_seed(6))
+    u = u.to(torch.bfloat16).to(cuda)
+    before = fs.fused_stack.launches
+    got = torch.ops.fse.fused_stack(u, *sw.frags, sw.prm)
+    assert fs.fused_stack.launches == before + 1
+    assert torch.equal(got, fs.fused_stack(u, sw))
+    strided = u.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert torch.equal(torch.ops.fse.fused_stack(strided, *sw.frags, sw.prm), got)
+    with pytest.raises(ValueError):
+        torch.ops.fse.fused_stack(u.float(), *sw.frags, sw.prm)
+
+
+def test_exported_enhance_runs_k1_once_a_call(cuda, tmp_path):
+    from fs_uae_image_enhancer_project_tpu_torch.export.stablehlo import (
+        export_enhance, load_enhance, stablehlo_text)
+
+    enhance = enhance_from_onnx(ONNX, device=cuda)
+    path = export_enhance(enhance, str(tmp_path / "ps.pt2"), frame_h=96, frame_w=128,
+                          device=cuda)
+    loaded = load_enhance(path, device=cuda)
+    frames = np.random.default_rng(8).integers(0, 256, (3, 96, 128, 4), dtype=np.uint8)
+    before = fs.fused_stack.launches
+    got = [loaded(frames[i:i + 1]) for i in range(3)]
+    assert fs.fused_stack.launches == before + 3
+    for i in range(3):
+        assert torch.equal(got[i], enhance(frames[i:i + 1]))
+    text = stablehlo_text(enhance, frame_h=96, frame_w=128, device=cuda)
+    assert text.count("torch.ops.fse.fused_stack.default(") == 1
+    with pytest.raises(ValueError, match="exported on cuda"):
+        load_enhance(path, device="cpu")
+
+
+def test_qconv_accumulators_equal_the_cpu(cuda):
+    from fs_uae_image_enhancer_project_tpu_torch.export import quantized as q
+
+    rng = np.random.default_rng(9)
+    # im2col rows (680, 10, 42, 408) that are not multiples of 32, at K = 32,
+    # 328, 112 and 2304: cuBLASLt refuses 680 x 32 and 42 x 112 unpadded
+    for cin, cout, h, w in ((3, 192, 40, 17), (36, 36, 2, 5), (12, 36, 6, 7), (256, 3, 24, 17)):
+        xq = torch.from_numpy(rng.integers(-127, 128, (1, h, w, cin), dtype=np.int8))
+        w_q = torch.from_numpy(rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8))
+        got = q.qconv_acc(w_q.to(cuda), xq.to(cuda))
+        assert got.is_cuda and torch.equal(got.cpu(), q.qconv_acc(w_q, xq))

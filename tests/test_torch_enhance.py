@@ -191,7 +191,11 @@ NEW_MODULES = ("utils.profiler", "utils.threefry", "ops.cuda.fused_stack_packed"
                "datagen.rgb444_flat", "datagen.prepare_groundtruth", "nas.search",
                "nas.fps_cache", "nas.studies", "nas.prune_failed", "nas.visualize",
                "losses.vgg_selftrain", "export.onnx_dump", "export.onnx_svg",
-               "export.raw_runner")
+               "export.raw_runner", "export.stablehlo", "export.quantized", "export.qat",
+               "utils.platform", "scripts.bench_int8_qat",
+               "benchmark_tools.benchmark_activation_functions",
+               "benchmark_tools.benchmark_kernel_sizes",
+               "benchmark_tools.benchmark_search_channels", "benchmark_tools.gamma_plot")
 
 
 def test_port_chip_smoke_and_card_tests_import_no_jax():

@@ -244,9 +244,41 @@ def test_cli_exports_a_port_checkpoint(name, tmp_path, capsys):
         _assert_trees_equal(imp.params, {k: v for k, v in want16.items() if v})
 
 
-def test_cli_offers_no_stablehlo():
-    with pytest.raises(SystemExit):
-        cli.main(["--checkpoint", "x", "--output", "y.onnx", "--stablehlo", "z"])
+def test_cli_offers_no_stablehlo(tmp_path, capsys):
+    """The name dates from before the port had the route. ``--stablehlo``
+    now writes the port's torch.export program (.pt2) with JAX's per-family
+    semantics: for pix_shuffle (its crop of 16) and conv3 (fused, sRGB, no
+    crop) the reloaded 576x752 program gives the checkpoint's enhance byte
+    for byte on a seeded frame."""
+    from fs_uae_image_enhancer_project_tpu_torch.export.stablehlo import (
+        artifact_meta, load_enhance)
+    from fs_uae_image_enhancer_project_tpu_torch.parallel.train_step import (
+        init_train_state, make_optimizer)
+    from fs_uae_image_enhancer_project_tpu_torch.train.trainer import save_checkpoint
+
+    frame = _frames((1, 576, 752, 4), seed=12)
+    for name in ("pix_shuffle", "conv3"):
+        m = get_model(name)
+        params = m.init(torch.Generator().manual_seed(3), device="cpu")
+        ckpt, pt2 = str(tmp_path / f"{name}_ckpt"), str(tmp_path / f"{name}.pt2")
+        save_checkpoint(ckpt, init_train_state(params, make_optimizer(),
+                                               has_batchnorm=name == "conv3"))
+        rc = cli.main(["--checkpoint", ckpt, "--model_type", name, "--output",
+                       str(tmp_path / f"{name}.onnx"), "--stablehlo", pt2, "--skip_verify",
+                       "--device", "cpu"])
+        printed = capsys.readouterr().out
+        assert rc == 0 and f"wrote {pt2}" in printed, printed
+        assert artifact_meta(pt2) == {"device": "cpu", "shape": [1, 576, 752, 4]}
+        if name == "conv3":
+            fused = conv_stack.fuse(params, m.config)
+            enhance = tor_enhance.make_enhance_fn(
+                lambda p, x: conv_stack.apply_fused(p, x, m.config), fused, crop_left=0,
+                srgb_domain=True, device="cpu")
+        else:
+            enhance = tor_enhance.make_enhance_fn(m.apply, params, crop_left=16, device="cpu")
+        got = load_enhance(pt2, device="cpu")(frame)
+        assert torch.equal(got, enhance(frame))
+        assert bool((got[:, :, :16, :3] == 0).all()) == (name == "pix_shuffle")
 
 
 # ---------------------------------------------------------------------------
@@ -368,8 +400,9 @@ def test_onnx_tools_command_lines(tmp_path, capsys):
 def test_raw_runner_matches_jax(tmp_path, capsys):
     """A seeded 752x576 raw RGBA dump through the shipped pix_shuffle graph:
     the port's PNG on the CPU within the >= 50 dB contract of JAX's (the
-    alpha equal), the PNG holds the returned frame, and
-    a wrong byte count and a non-ONNX model raise."""
+    alpha equal), the PNG holds the returned frame, a wrong byte count and
+    a model neither .onnx nor .pt2 raise, and a .pt2 program of the graph
+    gives the .onnx route's PNG."""
     from PIL import Image
 
     from fs_uae_image_enhancer_project_tpu.export import raw_runner as jax_raw
@@ -393,5 +426,12 @@ def test_raw_runner_matches_jax(tmp_path, capsys):
     np.testing.assert_array_equal(again[0], got)
     with pytest.raises(ValueError, match="bytes, expected"):
         raw_runner.load_raw_rgba(raw, width=96, height=64)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"\.onnx graphs and \.pt2 torch\.export programs"):
         raw_runner.run_inference(str(tmp_path / "enhance.jaxexport"), raw, png, device="cpu")
+    # the second route: a .pt2 program of the same graph gives the .onnx route's frame
+    from fs_uae_image_enhancer_project_tpu_torch.export.stablehlo import export_enhance
+
+    pt2 = export_enhance(tor_enhance.enhance_from_onnx(onnx, device="cpu"),
+                         str(tmp_path / "pix_shuffle.pt2"), device="cpu")
+    assert raw_runner.main(["--model", pt2, "--raw", raw, "--out", png, "--device", "cpu"]) == 0
+    np.testing.assert_array_equal(np.asarray(Image.open(png)), again[0])
