@@ -55,8 +55,6 @@ absent, so nothing carries on quietly on the CPU.
 """
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 FRAME_W = 752
@@ -69,7 +67,11 @@ MODEL_H = FRAME_H              # 576
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means ``cuda``. Raises when ``cuda`` is asked for and absent."""
+    """``None`` means ``cuda``. Raises when ``cuda`` is asked for and absent.
+    torch is imported here, not with the package, so that a frame server's
+    client process (``runtime.client``) imports no torch."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -41,10 +41,29 @@ def _scaled_tanh(x):
     return (torch.tanh(x) + 1.0) * 0.5
 
 
+def _relu6(x):
+    """``jnp.clip(x, 0, 6)``. Where a gradient flows: ``maximum`` then
+    ``minimum``, whose derivative at a bound is one half (JAX's tie rule),
+    where ``torch.clamp`` passes all of it; elsewhere (inference) the same
+    values from ``torch.clamp`` in one pass."""
+    if not x.requires_grad:
+        return torch.clamp(x, 0.0, 6.0)
+    return torch.minimum(torch.maximum(x, x.new_tensor(0.0)), x.new_tensor(6.0))
+
+
+def _leaky_relu(x, negative_slope: float):
+    """``jax.nn.leaky_relu``. Where a gradient flows, the derivative at 0 is
+    1, where ``F.leaky_relu``'s is the slope; elsewhere (inference) the same
+    values from ``F.leaky_relu`` in one pass."""
+    if not x.requires_grad:
+        return F.leaky_relu(x, negative_slope)
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
 _SIMPLE = {
     "identity": lambda x: x,
     "relu": torch.relu,
-    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
+    "relu6": _relu6,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "silu": F.silu,
@@ -168,7 +187,7 @@ def apply_activation(
     if n == "gelu":
         return _gelu(x, str(config.get("approximate", "none")))
     if n == "leaky_relu":
-        return F.leaky_relu(x, float(config.get("negative_slope", 0.01)))
+        return _leaky_relu(x, float(config.get("negative_slope", 0.01)))
     if n == "softplus":
         # torch switches to identity above threshold, as the JAX port does
         return F.softplus(x, beta=float(config.get("beta", 1.0)),

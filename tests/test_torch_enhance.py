@@ -195,7 +195,12 @@ NEW_MODULES = ("utils.profiler", "utils.threefry", "ops.cuda.fused_stack_packed"
                "utils.platform", "scripts.bench_int8_qat",
                "benchmark_tools.benchmark_activation_functions",
                "benchmark_tools.benchmark_kernel_sizes",
-               "benchmark_tools.benchmark_search_channels", "benchmark_tools.gamma_plot")
+               "benchmark_tools.benchmark_search_channels", "benchmark_tools.gamma_plot",
+               "runtime.client", "scripts.common", "scripts.make_gt_frames",
+               "scripts.bench_generator_e2e", "scripts.bench_sidecar_multiclient",
+               "scripts.bench_families", "scripts.bench_conv6_latency",
+               "scripts.eval_headtohead", "scripts.precompile", "scripts.build_artifacts",
+               "scripts.probe_fp32_grad", "train.gradcheck")
 
 
 def test_port_chip_smoke_and_card_tests_import_no_jax():
@@ -211,6 +216,8 @@ def test_port_chip_smoke_and_card_tests_import_no_jax():
             top = mod.split(".")[0]
             assert top != "jax" and top != "jaxlib", (path, mod)
             assert top != "fs_uae_image_enhancer_project_tpu", (path, mod)
+            if path.startswith(PORT):  # nor the root harness or the root scripts/
+                assert top not in ("chip_smoke", "scripts", "bench"), (path, mod)
     code = (
         "import importlib, pkgutil, sys\n"
         "import fs_uae_image_enhancer_project_tpu_torch as p\n"
