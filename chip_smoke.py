@@ -50,7 +50,7 @@ Phases, each printing one JSON line with its wall time:
               wait_for_line, replayed by sidecar_replay --loops 2
               --shutdown (every saved PNG byte-equal to the per-frame
               enhance); served latency: a server child at depth 0 and one
-              at depth 2, each replayed over 320 frames (40 loops), their
+              at depth 2, each replayed over 160 frames (20 loops), their
               --stats p50/p90/p99, byte-equal as above; models.benchmark for
               pix_shuffle and conv3 (1 s each); the spatial split at sp 2
               and 4 as a loop over slabs, within K1's 6e-3 of the unsplit
@@ -111,7 +111,8 @@ Phases, each printing one JSON line with its wall time:
               on a line
 14. tools     the VGG self-training (20 steps at the asset JSON's patch and
               batch from the committed encoder; loss down; rescale_taps to
-              the stored targets within 1e-4; save_asset read back),
+              the random basis's tap RMS on the probe within 1e-4;
+              save_asset read back),
               raw_runner on a seeded 752x576 raw RGBA file with the shipped
               pix_shuffle graph (its PNG byte-equal to enhance_from_onnx's
               frame, K1 once, counted from 0), onnx_dump and onnx_svg on
@@ -138,7 +139,7 @@ Phases, each printing one JSON line with its wall time:
               channels, the equal-latency search for kernels 1 and 5, the
               gamma curves' errors and SVG
 18. drivers   slice 11's drivers (scripts/), each through its main on the card,
-              counters from 0: make_gt_frames (4 seeded 1504x1152 scenes and
+              counters from 0: make_gt_frames (2 seeded 1504x1152 scenes and
               the 8 flat fills; its rerun keeps every file);
               bench_generator_e2e on those scenes (one crop each: the host
               leg, kmeans_torch on the CPU under its own name where sklearn
@@ -150,7 +151,7 @@ Phases, each printing one JSON line with its wall time:
               chunk of 16, every crop with more colours than either
               palette: K3 exactly 10 times);
               bench_sidecar_multiclient (a server child a point, 1 and 2
-              clients at depth 0 and 2, 2 s a point; the server's K1
+              clients at depth 0 and 2, 1 s a point; the server's K1
               launches one a frame plus its warm-up; every answer byte-equal
               to this process's enhance of the same frame); bench_families
               and bench_conv6_latency (0.5 s a family or variant; K1 once a
@@ -159,11 +160,32 @@ Phases, each printing one JSON line with its wall time:
               precompile at 576x752 (the warm first frame faster than the
               cold one, which builds the kernels); build_artifacts for
               pix_shuffle and conv3 (their ONNX bytes the committed ones)
-19. kernel_bench  the two kernel benches (slice 3's main path), about a
-              second a variant, counters from 0: bench_fused_stack (eager
+19. train_drivers  slice 12's training and NAS drivers (scripts/), each
+              through its main on the card on the datagen phase's tree,
+              outputs in temporary directories, K1's counter from 0 for
+              each: the JAX package's random VGG basis drawn cold
+              (utils.threefry, its seconds); train_psh_long and
+              train_psh_heavy_long at 2 epochs of 8 samples (each
+              optimizer step timed; K1 once a validation batch of the
+              lightweight, never for the heavy); training_parity_study at
+              one epoch a leg (ablation, selfvgg, plateau: every row's
+              vgg-free loss and PSNR finite, K1 once a validation and an
+              evaluation batch); plot_training_parity (exit 1 naming
+              matplotlib where it does not import); train_nas_winner from
+              artifacts/nas_r5/best_trial.json at 1 epoch, 64 evaluation
+              samples and 0.5 s of FPS at 576x752 bf16; train_vgg_features
+              at 20 steps of 32 128x128 patches under the optax chain (each
+              step timed; the calibrated taps within 1e-4 of
+              random_baseline_rms of its probe, recomputed here);
+              nas_demo_r2 at 2 trials on the tree cut to 128x96 (a cache
+              hit); convert_vgg16_weights (exit 1 naming torchvision); the
+              retention probe at 8 MB x 50 (GB retained per GB sent). The
+              trainers' pid file holds this process's pid and is removed
+20. kernel_bench  the two kernel benches (slice 3's main path), about half
+              a second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-20. timing    K1's and K2's device time a call (median, min and max of 3
+21. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -182,7 +204,7 @@ Phases, each printing one JSON line with its wall time:
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-21. kernels   every kernel launched, held against its plain version
+22. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -191,6 +213,7 @@ CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -256,7 +279,7 @@ SERVE_DEPTH = 2
 # slice 8: frames a stream-throughput reading takes, and at least as many
 # frames a served-latency reading replays
 STREAM_FRAMES = 200
-LATENCY_FRAMES = 320
+LATENCY_FRAMES = 160
 # slice 9: the NAS study the nas phase runs, its trials (4: the fewest
 # with which param_importances scores) and its crop (W, H)
 NAS_STUDY, NAS_TRIALS, NAS_CROP = "prune_act_r2", 4, (128, 96)
@@ -270,7 +293,7 @@ VGG_LR = 2e-4
 # direct call)
 EXPORT_FAMILIES = ("pix_shuffle", "conv3_heavy", "residual_unet")
 EXPORT_FRAMES = 8
-INT8_QAT_STEPS, INT8_DURATION_S = 300, 1.0
+INT8_QAT_STEPS, INT8_DURATION_S = 300, 0.5
 OP_SHARE_LIMIT = 0.05
 
 # slice 11: the drivers phase's corpus (1504x1152 scenes) and generator
@@ -279,10 +302,12 @@ OP_SHARE_LIMIT = 0.05
 # their crops each, one spec chunk of 16 for the batched leg; its served
 # points (clients x depths, seconds a point), the timed window of a family
 # or variant, and the head-to-head's samples
-DRIVER_SCENES, DRIVER_CROPS = 4, 1
+DRIVER_SCENES, DRIVER_CROPS = 2, 1
 DRIVER_RICH_IMAGES, DRIVER_RICH_CROPS = 4, 4
-DRIVER_CLIENTS, DRIVER_DEPTHS, DRIVER_SERVE_S = (1, 2), (0, 2), 2.0
+DRIVER_CLIENTS, DRIVER_DEPTHS, DRIVER_SERVE_S = (1, 2), (0, 2), 1.0
 DRIVER_WINDOW_S, DRIVER_EVAL_SAMPLES = 0.5, 8
+# slice 12: the VGG self-training's steps in the train_drivers phase
+TRAIN_DRIVERS_VGG_STEPS = 20
 
 # a child that imports only the port: load the artifact, enhance the frames,
 # save them and K1's launches
@@ -489,7 +514,7 @@ def library_lane_chain(a, w, grid: int):
     return a * 0.999 + 1e-7 * acc.sum(dim=1, keepdim=True), acc
 
 
-def kernel_bench(dev, duration_s: float = 1.0, fused_shape=(1, 576, 752, 3), lane_cases=None,
+def kernel_bench(dev, duration_s: float = 0.5, fused_shape=(1, 576, 752, 3), lane_cases=None,
                  grid: int = K4_BENCH_GRID) -> dict:
     """Slice 3's main path: the two kernel benches' ``main`` with short
     windows, every launch counter set to 0 just before and read just after."""
@@ -1415,9 +1440,9 @@ def tools(dev, vgg_steps: int = 20, vgg_batch=None, vgg_patch=None) -> dict:
     """The three tools of slice 9 on ``dev``: the VGG self-training
     (``vgg_steps`` Adam steps at the asset's peak learning rate on seeded
     patches at the asset JSON's patch size and batch, from the committed
-    encoder and a seeded decoder; one more step profiled; the tap
-    calibration to the stored targets on a probe of 4 patches; the asset
-    written and read back), ``raw_runner`` on a seeded 752x576 raw RGBA
+    encoder and JAX's decoder of seed 0; one more step profiled; the tap
+    calibration on a probe of 4 patches to the random basis's tap RMS on
+    that probe; the asset written and read back), ``raw_runner`` on a seeded 752x576 raw RGBA
     file with the shipped pix_shuffle graph (K1's launches counted from 0),
     and ``onnx_dump`` and ``onnx_svg`` on that graph."""
     import contextlib
@@ -1434,6 +1459,7 @@ def tools(dev, vgg_steps: int = 20, vgg_batch=None, vgg_patch=None) -> dict:
     from fs_uae_image_enhancer_project_tpu_torch.losses import vgg_selftrain as st
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
     from fs_uae_image_enhancer_project_tpu_torch.scripts.common import gradient_noise
+    from fs_uae_image_enhancer_project_tpu_torch.utils import threefry
 
     rec: dict = {}
     with open(st.ASSET_JSON) as f:
@@ -1442,7 +1468,7 @@ def tools(dev, vgg_steps: int = 20, vgg_batch=None, vgg_patch=None) -> dict:
     x = torch.from_numpy(np.stack([gradient_noise(patch, patch, seed=40 + i)
                                    for i in range(batch)]).astype(np.float32) / 255.0).to(dev)
     enc = vgg.init_vgg16(device=dev)
-    dec = st.init_decoder(torch.Generator().manual_seed(0), device=dev)
+    dec = st.init_decoder(threefry.key(0), device=dev)
     step = st.make_train_step(enc, dec, VGG_LR)
     losses = [float(step(x))]
     _sync(dev)
@@ -1453,8 +1479,8 @@ def tools(dev, vgg_steps: int = 20, vgg_batch=None, vgg_patch=None) -> dict:
     losses = losses[:1] + [float(v) for v in losses[1:]]
     busy, top, n_kernels = _device_busy(lambda: step(x), dev)  # one more step, profiled
     host = dict(load_1min=os.getloadavg()[0], threads=threading.active_count())
-    targets = st.random_baseline_rms()
     probe = x[:4].cpu().numpy()
+    targets = st.random_baseline_rms(probe, device=dev)
     scaled = st.rescale_taps(enc, probe, targets)
     got = st.measure_tap_rms(scaled, probe)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2251,6 +2277,249 @@ def check_drivers(rec: dict, dev, scenes: int = DRIVER_SCENES, crops: int = DRIV
           f"build_artifacts' ONNX differs: {rec['build_artifacts']['report']}")
 
 
+def timed_steps(module, name: str, dev, record: list):
+    """``module.<name>`` (a train-step factory) wrapped so that every step it
+    builds is timed on the host's clock, synchronised at both ends, into
+    ``record`` (ms a step); returns the restore function."""
+    real = getattr(module, name)
+
+    def factory(*a, **kw):
+        step = real(*a, **kw)
+
+        def timed(*sa, **skw):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = step(*sa, **skw)
+            _sync(dev)
+            record.append((time.perf_counter() - t0) * 1e3)
+            return out
+        timed.__dict__.update(step.__dict__)  # step.optimizer
+        return timed
+
+    setattr(module, name, factory)
+    return lambda: setattr(module, name, real)
+
+
+def train_drivers(dev, tree: str, crop=(CROP_W, CROP_H), long_samples: int = 8,
+                  long_epochs: int = 2, batch: int = 8, parity_samples: int = 8,
+                  winner_samples: int = 8, eval_samples: int = 64, fps_s: float = 0.5,
+                  vgg_steps: int = TRAIN_DRIVERS_VGG_STEPS, vgg_batch: int = 32,
+                  vgg_patch: int = 128, vgg_warmup: int = 5, nas_crop=NAS_CROP,
+                  nas_trials: int = 2, nas_samples: int = 32, probe_mb: float = 8.0,
+                  probe_n: int = 50) -> dict:
+    """Slice 12's training and NAS drivers (``scripts/``), each through its
+    ``main`` on ``dev`` on the generator tree ``tree``, outputs in temporary
+    directories, K1's counter from 0 for each: the random VGG basis drawn
+    cold (``vgg._random_init``, its host cache cleared); the two long
+    trainers at ``long_epochs`` epochs of ``long_samples`` samples (each
+    optimizer step timed); the parity study at one epoch of
+    ``parity_samples`` a leg; the plot (where matplotlib does not import,
+    its exit 1); the NAS winner (``artifacts/nas_r5/best_trial.json``) at one
+    epoch, ``eval_samples`` held-out draws and ``fps_s`` of FPS; the VGG
+    self-training at ``vgg_steps`` steps of ``vgg_batch`` ``vgg_patch``
+    patches (each step timed), its calibration target recomputed here on
+    its probe; ``nas_demo_r2`` for ``nas_trials`` trials on the tree cut to
+    ``nas_crop``; the converter (exit 1 without torchvision); the retention
+    probe at ``probe_mb`` MB x ``probe_n``. The trainers' pid file is read,
+    then removed."""
+    import numpy as np
+
+    from fs_uae_image_enhancer_project_tpu_torch.losses import vgg
+    from fs_uae_image_enhancer_project_tpu_torch.losses import vgg_selftrain as st
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.scripts import train_vgg_features as tvf
+    from fs_uae_image_enhancer_project_tpu_torch.scripts import training_parity_study as tps
+    from fs_uae_image_enhancer_project_tpu_torch.train import trainer as tr
+    from fs_uae_image_enhancer_project_tpu_torch.utils import platform
+
+    on = ["--device", dev.type]
+    w, h = crop
+    rec: dict = {}
+    vgg._random_basis.cache_clear()
+    t0 = time.perf_counter()
+    vgg._random_init(device=dev)
+    _sync(dev)
+    rec["basis_draw_s"] = time.perf_counter() - t0
+    if os.path.exists(platform.PREEMPTIBLE_PIDFILE):
+        os.remove(platform.PREEMPTIBLE_PIDFILE)
+
+    def drive(key, name, argv, env=None):
+        fs.fused_stack.launches = 0
+        old = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            rc, out, s = run_driver(name, argv)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        rec[key] = dict(rc=rc, seconds=s, k1_launches=fs.fused_stack.launches, report=out)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, name in (("train_psh_long", "train_psh_long"),
+                          ("train_psh_heavy_long", "train_psh_heavy_long")):
+            steps: list = []
+            restore = timed_steps(tr, "make_train_step", dev, steps)
+            try:
+                drive(key, name, ["--data", tree, "--out", os.path.join(tmp, name),
+                                  "--crop_size", str(w), str(h), "--epochs", str(long_epochs),
+                                  "--samples_per_epoch", str(long_samples),
+                                  "--batch_size", str(batch), *on])
+            finally:
+                restore()
+            rec[key].update(step_ms=steps, samples_per_step=batch)
+        rec["pidfile"] = None
+        if os.path.exists(platform.PREEMPTIBLE_PIDFILE):
+            with open(platform.PREEMPTIBLE_PIDFILE) as f:
+                rec["pidfile"] = f.read().strip()
+        old_out = tps.OUT
+        tps.OUT = os.path.join(tmp, "training_parity")
+        try:
+            drive("training_parity_study", "training_parity_study", [
+                "--data", tree, "--crop_size", str(w), str(h), "--ablation_epochs", "1",
+                "--plateau_epochs", "1", "--samples_per_epoch", str(parity_samples),
+                "--batch_size", str(batch), *on])
+        finally:
+            tps.OUT = old_out
+        rec["training_parity_study"]["val_batches_a_leg"] = 2 * max(parity_samples // 8, 64) // batch
+        try:
+            import matplotlib  # noqa: F401
+            rec["matplotlib"] = True
+        except ImportError:
+            rec["matplotlib"] = False
+        drive("plot_training_parity", "plot_training_parity",
+              ["--out_dir", os.path.join(tmp, "plot")])
+        nas_out = os.path.join(tmp, "nas_r5")
+        os.makedirs(nas_out)
+        shutil.copy(os.path.join(REPO, "artifacts", "nas_r5", "best_trial.json"), nas_out)
+        drive("train_nas_winner", "train_nas_winner", [
+            "--nas_out", nas_out, "--data", tree, "--out", os.path.join(tmp, "conv6"),
+            "--crop_size", str(w), str(h), "--epochs", "1", "--samples_per_epoch",
+            str(winner_samples), "--batch_size", str(batch), "--eval_samples",
+            str(eval_samples), "--fps_seconds", str(fps_s), *on])
+        steps = []
+        restore = timed_steps(st, "make_train_step", dev, steps)
+        data, gt = os.path.join(tree, "train"), os.path.join(tmp, "gt")
+        os.makedirs(gt)
+        try:
+            drive("train_vgg_features", "train_vgg_features", [
+                "--data", data, "--gt", gt, "--steps", str(vgg_steps), "--batch_size",
+                str(vgg_batch), "--patch", str(vgg_patch), "--warmup", str(vgg_warmup),
+                "--work", os.path.join(tmp, "vgg_work"),
+                "--out", os.path.join(tmp, "vgg", "vgg16_features_selftrained.npz"), *on])
+        finally:
+            restore()
+        # the driver's probe: its validation sampler (seed 0 + 1) after the
+        # validation batch
+        files = sorted(glob.glob(os.path.join(data, "*", "*.png")))
+        val_sampler = tvf.PatchSampler(files, vgg_patch, 200, 1)
+        val_sampler.batch(vgg_batch)
+        probe = val_sampler.batch(16).astype(np.float32) / 255.0
+        rec["train_vgg_features"].update(
+            step_ms=steps, target_here=st.random_baseline_rms(probe, device=dev))
+        nas_data = os.path.join(tmp, "nas_tree")
+        nas_tree(tree, nas_data, nas_crop)
+        drive("nas_demo_r2", "nas_demo_r2", on, env=dict(
+            NAS_OUT=os.path.join(tmp, "nas_demo_r2"), NAS_DATA=nas_data,
+            NAS_TRIALS=str(nas_trials), NAS_EPOCHS="1", NAS_SAMPLES=str(nas_samples),
+            NAS_CROP=f"{nas_crop[0]}x{nas_crop[1]}", NAS_FPS_S=str(fps_s)))
+        try:
+            import torchvision  # noqa: F401
+            rec["torchvision"] = True  # its weights need the network: not converted here
+        except ImportError:
+            rec["torchvision"] = False
+            drive("convert_vgg16_weights", "convert_vgg16_weights",
+                  ["--out", os.path.join(tmp, "vgg16_features.npz")])
+        drive("probe_transfer_retention", "probe_transfer_retention", [
+            "--mb", str(probe_mb), "--n", str(probe_n), "--sample_every",
+            str(max(probe_n // 5, 1)), *on])
+    if os.path.exists(platform.PREEMPTIBLE_PIDFILE):
+        os.remove(platform.PREEMPTIBLE_PIDFILE)
+    rec["pidfile_removed"] = not os.path.exists(platform.PREEMPTIBLE_PIDFILE)
+    # the readings PERF.md keeps: a step after the first is warm
+    long_ms = rec["train_psh_long"]["step_ms"]
+    warm = statistics.median(long_ms[1:] or long_ms)
+    rec["readings"] = dict(
+        basis_draw_s=rec["basis_draw_s"],
+        driver_seconds={k: r["seconds"] for k, r in rec.items()
+                        if isinstance(r, dict) and "seconds" in r},
+        train_psh_long_first_step_ms=long_ms[0], train_psh_long_warm_step_ms=warm,
+        train_psh_long_samples_per_s=batch / warm * 1e3,
+        vgg_ms_per_step=statistics.median(rec["train_vgg_features"]["step_ms"][1:]
+                                          or rec["train_vgg_features"]["step_ms"]),
+        nas_winner_fps=rec["train_nas_winner"]["report"]["fps_deployment_shape"],
+        retained_gb_per_gb_sent=rec["probe_transfer_retention"]["report"]["samples"][-1]["ratio"])
+    return rec
+
+
+def check_train_drivers(rec: dict, dev, long_epochs: int = 2, long_samples: int = 8,
+                        batch: int = 8) -> None:
+    """The train_drivers phase's checks; K1 launches only on a card."""
+    on_card = dev.type == "cuda"
+    missing = {"plot_training_parity": None if rec["matplotlib"] else "matplotlib",
+               "convert_vgg16_weights": "torchvision"}
+    for key, r in rec.items():
+        if not isinstance(r, dict) or "rc" not in r:
+            continue
+        module = missing.get(key)
+        if module:
+            check(r["rc"] == 1 and r["report"].get("missing_module") == module
+                  and module in r["report"]["error"],
+                  f"{key} without {module}: exit {r['rc']}, {r['report']}")
+        else:
+            check(r["rc"] == 0, f"driver {key} exited {r['rc']}: {r['report']}")
+    val_batches = max(long_samples // 8, 64) // batch
+    for key, k1 in (("train_psh_long", long_epochs * val_batches), ("train_psh_heavy_long", 0)):
+        r = rec[key]
+        epochs = r["report"]["epochs"]
+        check(len(epochs) == long_epochs and all(math.isfinite(e["train_loss"])
+                                                 and math.isfinite(e["val_loss"])
+                                                 for e in epochs), f"{key}: {epochs}")
+        want = k1 if on_card else 0
+        check(r["k1_launches"] == want, f"{key}: K1 launched {r['k1_launches']} times, "
+                                        f"not {want} (once a validation batch)")
+        check(len(r["step_ms"]) == long_epochs, f"{key}: {len(r['step_ms'])} optimizer steps")
+    check(rec["pidfile"] == str(os.getpid()) and rec["pidfile_removed"],
+          f"the trainers' pid file held {rec['pidfile']} (this process: {os.getpid()})")
+    p = rec["training_parity_study"]
+    s = p["report"]
+    legs = [s["ablation"][k] for k in ("novgg", "randvgg", "selfvgg")] + [s["plateau"]]
+    check(all(math.isfinite(v["novgg_val_loss"]) and math.isfinite(v["srgb_psnr_db"])
+              and v["best_epoch"] == 1 for v in legs)
+          and s["plateau"]["corpus_tag"] == s["ablation"]["corpus_tag"]
+          and {"last_run", "ablation", "plateau"} <= set(s), f"parity study: {s}")
+    want = 4 * p["val_batches_a_leg"] if on_card else 0
+    check(p["k1_launches"] == want, f"parity study: K1 launched {p['k1_launches']}, not {want}")
+    if rec["matplotlib"]:
+        check(rec["plot_training_parity"]["report"]["ours_epochs"] > 0, "plot: no points")
+    wn = rec["train_nas_winner"]["report"]
+    check(math.isfinite(wn["eval"]["srgb_psnr_db"]) and wn["fps_deployment_shape"] > 0
+          and math.isfinite(wn["best_val_own_metric"]), f"NAS winner: {wn}")
+    v = rec["train_vgg_features"]
+    meta = v["report"]
+    check(math.isfinite(meta["final_val_recon_charbonnier"]) and len(v["step_ms"]) > 0,
+          f"VGG self-training: {meta}")
+    for got, target, here in zip(meta["tap_rms_calibrated"], meta["tap_rms_target_random"],
+                                 v["target_here"]):
+        check(abs(got - here) <= 1e-4 * here and abs(target - here) <= 1e-5 * here,
+              f"calibrated taps {meta['tap_rms_calibrated']} vs random_baseline_rms(probe) "
+              f"{v['target_here']}")
+    n = rec["nas_demo_r2"]["report"]
+    hit = n["fps_cache_hit_on_best_arch"]
+    check(n["trials_total"] >= 2 and hit["hit"] and hit["measure_invocations"] == 0
+          and math.isfinite(n["best_trial"]["value"]), f"nas_demo_r2: {n}")
+    check(n["plots"]["missing_module"] == (None if rec["matplotlib"] else "matplotlib"),
+          f"nas_demo_r2's plots: {n['plots']}")
+    for key in ("train_nas_winner", "train_vgg_features", "nas_demo_r2"):
+        check(rec[key]["k1_launches"] == 0, f"{key} launched K1")
+    pr = rec["probe_transfer_retention"]["report"]
+    check(len(pr["samples"]) == 5 and all(math.isfinite(x["ratio"]) for x in pr["samples"]),
+          f"retention probe: {pr}")
+
+
 def op_dispatch(dev, enhance_direct, enhance_op, u, sw, frame_dev, rounds: int = 4) -> dict:
     """K1's custom op against its direct call: the host's µs a call (200
     calls queued without a synchronise) and the pix_shuffle enhance's ms a
@@ -2555,7 +2824,6 @@ def main(argv=None) -> int:
     for counter in _counters().values():
         counter.launches = 0
     nas_rec = nas(dev, tree)
-    work.cleanup()
     nas_rec["launches"] = {k: c.launches for k, c in _counters().items()}
     emit("nas", t0, **nas_rec, nvidia_smi=smi)
     for t in nas_rec["trials"]:
@@ -2601,7 +2869,16 @@ def main(argv=None) -> int:
     emit("drivers", t0, **drv, launches=drv_launches, nvidia_smi=smi)
     check_drivers(drv, dev)
 
-    # 19. kernel_bench: slice 3's main path, every counter from 0
+    # 19. train_drivers: slice 12's training and NAS drivers on the datagen
+    # phase's tree, K1's counter from 0 for each
+    _phase = "train_drivers"
+    t0 = time.perf_counter()
+    tdrv = train_drivers(dev, tree)
+    work.cleanup()
+    emit("train_drivers", t0, **tdrv, nvidia_smi=smi)
+    check_train_drivers(tdrv, dev)
+
+    # 20. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -2611,7 +2888,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 20. timing at the main paths' shapes
+    # 21. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -2685,7 +2962,7 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 21. kernels
+    # 22. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
@@ -2697,6 +2974,8 @@ def main(argv=None) -> int:
         export_launches=exp["pix_shuffle"]["k1_launches"],
         export_child_launches=exp["pix_shuffle"]["child"]["k1_launches"],
         int8_study_launches=i8["k1_launches"], drivers_launches=drv_launches["fused_stack"],
+        train_drivers_launches={k: r["k1_launches"] for k, r in tdrv.items()
+                                if isinstance(r, dict) and "k1_launches" in r},
         max_abs_err=k1_err, ms=k1_ms, kernel_ms=k1_ms,
         plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms),

@@ -44,6 +44,17 @@ What is ported, by slice:
    ``export.qat``, measured by ``scripts.bench_int8_qat``), the bench lock
    (``utils.platform``) and the design benchmarks (``benchmark_tools``).
 
+11. the root drivers that serve, bench and evaluate (``scripts``:
+   ``make_gt_frames``, ``bench_generator_e2e``, ``bench_sidecar_multiclient``,
+   ``bench_families``, ``bench_conv6_latency``, ``eval_headtohead``,
+   ``precompile``, ``build_artifacts``);
+12. the JAX package's fixed-seed random VGG basis, drawn without jax
+   (``utils.threefry``, ``losses.vgg._random_init``), and the root drivers
+   that train and search (``scripts``: ``train_psh_long``,
+   ``train_psh_heavy_long``, ``training_parity_study``,
+   ``plot_training_parity``, ``train_nas_winner``, ``train_vgg_features``,
+   ``nas_demo_r2``, ``convert_vgg16_weights``, ``probe_transfer_retention``).
+
 The port now does all that the JAX package does. Two JAX modules keep no
 counterpart: ``utils/compile_cache.py`` (the hash-keyed nvcc cache of
 ``ops/cuda/build.py`` stands for it) and ``honor_jax_platforms_env`` of

@@ -1,8 +1,7 @@
-"""The training losses (port of ``fs_uae_image_enhancer_project_tpu/losses``).
-
-``losses/vgg_selftrain.py`` (the VGG feature self-training) is not ported
-yet: its calibration target is the RMS of the JAX package's random VGG,
-which torch cannot draw.
+"""The training losses (port of ``fs_uae_image_enhancer_project_tpu/losses``):
+the pixel and frequency terms, SSIM, the VGG16 features with the JAX
+package's fixed-seed random basis (``vgg``), the combined perceptual
+criterion, and the VGG feature self-training (``vgg_selftrain``).
 """
 from . import functional, perceptual, ssim, vgg  # noqa: F401
 from .functional import (  # noqa: F401

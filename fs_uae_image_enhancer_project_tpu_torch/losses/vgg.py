@@ -8,17 +8,21 @@ relu labels.
 
 Weights load in the JAX package's order of preference: the
 torchvision-converted asset ``assets/vgg16_features.npz``, then the committed
-self-trained ``assets/vgg16_features_selftrained.npz``. With neither present
-:func:`init_vgg16` raises: the JAX package's third choice, a He-normal VGG
-drawn from ``jax.random``, cannot be drawn in torch, and different random
-features would be a different loss.
+self-trained ``assets/vgg16_features_selftrained.npz``, then, with a warning,
+the JAX package's fixed-seed He-normal basis (:func:`_random_init`), drawn
+here with ``utils.threefry``'s copy of ``jax.random``: the same numbers as
+JAX's within 4 ulp, so the same loss. The committed trained rows were
+trained under that basis, and the drivers that reproduce them pin it.
 
 The convolutions run in fp32 with TF32 off (the JAX package's
 ``Precision.HIGHEST``); max-pool is 2x2 VALID.
 """
 from __future__ import annotations
 
+import functools
+import math
 import os
+import warnings
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.conv import no_tf32
+from ..utils import threefry
 
 # torchvision vgg16 features[0..26] (cfg D): (index, op, out_channels)
 VGG16_LAYOUT: Tuple[Tuple[int, str, int], ...] = (
@@ -76,18 +81,60 @@ def _load_asset(path: str, device=None) -> Params:
                 for i in conv_indices()]
 
 
-def init_vgg16(device=None) -> Params:
-    """The feature weights: the pretrained asset if present, else the
-    self-trained one; raises ``FileNotFoundError`` with neither."""
-    for path in (os.path.abspath(_ASSET), os.path.abspath(_ASSET_SELFTRAINED)):
-        if os.path.exists(path):
-            return _load_asset(path, device)
-    raise FileNotFoundError(
-        f"no vgg16 asset at {os.path.abspath(_ASSET)} (pretrained) or "
-        f"{os.path.abspath(_ASSET_SELFTRAINED)} (self-trained). The port draws no "
-        "random VGG (the JAX package's random features come from jax.random, "
-        "which torch cannot reproduce): convert torchvision weights with "
-        "convert_torchvision_state_dict, or train with vgg_weight=0.")
+def init_vgg16(device=None, key=None) -> Params:
+    """Load feature weights by preference order: torchvision-converted
+    pretrained asset > in-domain self-trained asset (losses/vgg_selftrain.py)
+    > fixed-seed He init (:func:`_random_init` under ``key``, with a loud
+    warning), on ``device`` (default ``cuda``)."""
+    path = os.path.abspath(_ASSET)
+    if os.path.exists(path):
+        return _load_asset(path, device)
+    self_path = os.path.abspath(_ASSET_SELFTRAINED)
+    if os.path.exists(self_path):
+        return _load_asset(self_path, device)
+    warnings.warn(
+        f"no vgg16 asset at {path} (pretrained) or {self_path} "
+        "(self-trained): the perceptual loss is using FIXED-SEED RANDOM VGG "
+        "features (random-projection loss), not pretrained VGG16. Loss "
+        "values are not comparable to the reference's CSVs. See "
+        "assets/README.md for the one-time torchvision conversion, or run "
+        "scripts/train_vgg_features.py to self-train in-domain features.",
+        stacklevel=2,
+    )
+    return _random_init(key, device=device)
+
+
+@functools.lru_cache(maxsize=2)
+def _random_basis(key_words: Tuple[int, int]) -> Tuple[np.ndarray, ...]:
+    """The He-normal weights of :func:`_random_init` under a key, as host
+    arrays (drawing the 14.7 M weights takes seconds on a CPU: the process
+    keeps the last two keys' draws)."""
+    weights = []
+    key, cin = key_words, 3
+    for _i, kind, cout in VGG16_LAYOUT:
+        if kind != "conv":
+            continue
+        key, wk = threefry.split(key)
+        std = math.sqrt(2.0 / (cin * 9))
+        w = threefry.normal(wk, (3, 3, cin, cout)) * np.float32(std)
+        w.setflags(write=False)
+        weights.append(w)
+        cin = cout
+    return tuple(weights)
+
+
+def _random_init(key=None, device=None) -> Params:
+    """The JAX package's fixed-seed He-normal fallback (a structured
+    random-projection perceptual metric, quantified in
+    artifacts/training_parity): ``jax.random.key(1234)`` by default, each
+    conv's weights ``normal(split(key)[1]) * sqrt(2 / fan_in)``, zero biases.
+    ``key`` is a ``utils.threefry`` key. Fresh tensors on ``device``
+    (default ``cuda``) on every call: a caller may train them."""
+    dev = resolve_device(device)
+    words = threefry.key(1234) if key is None else tuple(int(w) for w in key)
+    return [{"w": torch.tensor(w, device=dev),
+             "b": torch.zeros(w.shape[-1], dtype=torch.float32, device=dev)}
+            for w in _random_basis(words)]
 
 
 def convert_torchvision_state_dict(state: Dict[str, np.ndarray], out_path: str) -> None:

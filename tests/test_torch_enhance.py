@@ -200,7 +200,11 @@ NEW_MODULES = ("utils.profiler", "utils.threefry", "ops.cuda.fused_stack_packed"
                "scripts.bench_generator_e2e", "scripts.bench_sidecar_multiclient",
                "scripts.bench_families", "scripts.bench_conv6_latency",
                "scripts.eval_headtohead", "scripts.precompile", "scripts.build_artifacts",
-               "scripts.probe_fp32_grad", "train.gradcheck")
+               "scripts.probe_fp32_grad", "train.gradcheck", "scripts.train_psh_long",
+               "scripts.train_psh_heavy_long", "scripts.training_parity_study",
+               "scripts.plot_training_parity", "scripts.train_nas_winner",
+               "scripts.train_vgg_features", "scripts.nas_demo_r2",
+               "scripts.convert_vgg16_weights", "scripts.probe_transfer_retention")
 
 
 def test_port_chip_smoke_and_card_tests_import_no_jax():

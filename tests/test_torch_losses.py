@@ -213,12 +213,20 @@ def test_init_vgg16_loads_the_committed_asset_as_jax_does():
 
 
 def test_init_vgg16_without_an_asset_raises(monkeypatch, tmp_path):
+    """Without either asset, init_vgg16 no longer raises: it warns and falls
+    back to the JAX package's fixed-seed random basis, as JAX's does
+    (tests/test_torch_train_drivers.py holds the basis to JAX's)."""
     monkeypatch.setattr(tvgg, "_ASSET", str(tmp_path / "none.npz"))
     monkeypatch.setattr(tvgg, "_ASSET_SELFTRAINED", str(tmp_path / "none_either.npz"))
-    with pytest.raises(FileNotFoundError, match="no vgg16 asset"):
-        tvgg.init_vgg16("cpu")
-    with pytest.raises(FileNotFoundError):
-        T.make_perceptual_loss(T.PerceptualConfig(vgg_weight=0.1), device="cpu")
+    with pytest.warns(UserWarning, match="no vgg16 asset"):
+        got = tvgg.init_vgg16("cpu")
+    want = tvgg._random_init(device="cpu")
+    assert len(got) == len(want) == 12
+    for a, b in zip(got, want):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+    with pytest.warns(UserWarning, match="FIXED-SEED RANDOM VGG"):
+        crit = T.make_perceptual_loss(T.PerceptualConfig(vgg_weight=0.1), device="cpu")
+    assert np.isfinite(crit(torch.zeros(1, 16, 16, 3), torch.ones(1, 16, 16, 3)).item())
     # without VGG, no asset is needed
     crit = T.make_perceptual_loss(T.PerceptualConfig(vgg_weight=0.0), device="cpu")
     assert np.isfinite(crit(torch.zeros(1, 4, 4, 3), torch.ones(1, 4, 4, 3)).item())
