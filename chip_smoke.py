@@ -27,7 +27,25 @@ Phases, each printing one JSON line with its wall time:
 7. enhance    8 seeded 576x752 RGBA frames through enhance_from_onnx on cuda
 8. server     the port's frame server at depth 0 and 2 (slice 1's main path):
               every launch counter is set to 0 just before and read just after
-9. families   every other model family of the served path (slice 7's main
+9. recipes    the port's run recipes (fs_uae_image_enhancer_project_tpu_torch/
+              recipes, slice 13), each through bash in a temporary directory
+              with PYTHON this interpreter, the work cut only through their
+              pass-through: prepare_groundtruth.sh on the datagen phase's two
+              source images; generate_dataset.sh on its output (16 crops: 4
+              an image at scale 100% and 90%, palettes 64 and 256, dithers
+              none and bayer4x4, one rotation; 376x288 lores crops, the
+              device route), its command line recorded through a shim PYTHON and run
+              again by the port's generator in this process (K3 counted from
+              0 there; both PNG trees byte-equal); train_pix_shuffle.sh on
+              that tree for one epoch of 32 samples and 8 validation samples
+              at the recipe's batch and accumulation (one optimizer step; the
+              CSV, the best checkpoint, K1 in the child's validation from its
+              metrics line); serve_sidecar.sh as a child with the shipped
+              graph and --stats, the C replay tool (runtime/sidecar_client.c
+              built with cc or gcc) 8 loops of one 576x752 frame and the
+              Python client once, byte-equal to each other and to this
+              process's enhance, K1's launches from the server's stats
+10. families   every other model family of the served path (slice 7's main
               path), the six shipped graphs artifacts/model_{conv3,
               conv3_heavy,conv5,conv5_heavy,conv6,residual_unet}, one seeded
               576x752 frame each, counters from 0 (no kernel of the repo on
@@ -39,7 +57,7 @@ Phases, each printing one JSON line with its wall time:
               shipped file's bytes, and its frames equal the shipped
               graph's; the U-Net served at depth 2, byte-equal to the direct
               enhance
-10. parallel_tools  slice 8's paths with the shipped pix_shuffle graph in one
+11. parallel_tools  slice 8's paths with the shipped pix_shuffle graph in one
               process, K1's launches counted on each: measure_stream_throughput
               at depth 1 and 2 over 200 seeded frames (host arrays in and
               out; K1 once a frame, warm-up included) beside the enhance's
@@ -55,13 +73,13 @@ Phases, each printing one JSON line with its wall time:
               pix_shuffle and conv3 (1 s each); the spatial split at sp 2
               and 4 as a loop over slabs, within K1's 6e-3 of the unsplit
               K1 frame (K1 once a slab)
-11. datagen   the port's dataset generator (slice 2's main path) on two seeded
+12. datagen   the port's dataset generator (slice 2's main path) on two seeded
               1504x1152 images, 376x288 lores crops, kmeans_torch palettes 64
               and 256, five dithers, device_batch 16, counters from 0; then
               its rerun (nothing to do), k-means on the card against the CPU,
               and the per-crop route against the batched one, PNG for PNG,
               with one worker and with two (spawned, a CUDA context each)
-12. train     training (slice 6's main path) on the datagen phase's tree
+13. train     training (slice 6's main path) on the datagen phase's tree
               through the trainer CLI: the lightweight pix_shuffle with its
               own criterion (VGG 0.007 on the committed self-trained asset,
               Charbonnier, the HF term), 376x288 uint8 batches of 1,
@@ -92,7 +110,7 @@ Phases, each printing one JSON line with its wall time:
               calls a larger mesh makes, over a world of one rank); and the
               CLI asked for more ranks than
               cards (--n_devices 2 on one card) exits 1 with JAX's message
-13. nas       the NAS entry point (slice 9): nas.studies.main, prune_act_r2
+14. nas       the NAS entry point (slice 9): nas.studies.main, prune_act_r2
               (20 activations, layer 6's kernel size), 4 trials on the
               datagen tree cut to 128x96, 1 epoch of 32 samples at batch
               16, FPS of each candidate at 576x752 bf16 for 0.5 s, the
@@ -109,7 +127,7 @@ Phases, each printing one JSON line with its wall time:
               timed warm on one batch of the tree. Each trial's
               architecture hash, FPS, ms a step, validation loss and state
               on a line
-14. tools     the VGG self-training (20 steps at the asset JSON's patch and
+15. tools     the VGG self-training (20 steps at the asset JSON's patch and
               batch from the committed encoder; loss down; rescale_taps to
               the random basis's tap RMS on the probe within 1e-4;
               save_asset read back),
@@ -117,7 +135,7 @@ Phases, each printing one JSON line with its wall time:
               pix_shuffle graph (its PNG byte-equal to enhance_from_onnx's
               frame, K1 once, counted from 0), onnx_dump and onnx_svg on
               that graph (one line and one box a node)
-15. export    the torch.export route (slice 10): pix_shuffle, conv3_heavy and
+16. export    the torch.export route (slice 10): pix_shuffle, conv3_heavy and
               the residual U-Net from their shipped graphs through
               enhance_from_onnx, exported at 1x576x752 on the card with
               export.stablehlo.export_enhance, loaded back in this process
@@ -126,19 +144,19 @@ Phases, each printing one JSON line with its wall time:
               (the custom op torch.ops.fse.fused_stack) once a pix_shuffle
               call, never for the others, counted from 0; the text dump
               names the op once; ms a frame loaded against eager
-16. int8      slice 10's int8 path: quantized._qconv's int32 accumulators
+17. int8      slice 10's int8 path: quantized._qconv's int32 accumulators
               on the card equal to the CPU's on one conv3_heavy frame, layer
               by layer; then scripts/bench_int8_qat.py's study (conv3_heavy
               PTQ and QAT at 300 steps, pix_shuffle PTQ: min PSNR against
               the fp32 enhance over the eight committed frames; the
               distillation loss; ms a frame bf16 against int8, and K1
               against eager bf16 against int8 for pix_shuffle)
-17. benchmark_tools  the four design tools (slice 10) on reduced grids,
+18. benchmark_tools  the four design tools (slice 10) on reduced grids,
               about 0.05 s a case: the activations' fwd and fwd+bwd at
               1x288x376x36, the conv grid at kernels 1-5 x 12/36/72
               channels, the equal-latency search for kernels 1 and 5, the
               gamma curves' errors and SVG
-18. drivers   slice 11's drivers (scripts/), each through its main on the card,
+19. drivers   slice 11's drivers (scripts/), each through its main on the card,
               counters from 0: make_gt_frames (2 seeded 1504x1152 scenes and
               the 8 flat fills; its rerun keeps every file);
               bench_generator_e2e on those scenes (one crop each: the host
@@ -160,7 +178,7 @@ Phases, each printing one JSON line with its wall time:
               precompile at 576x752 (the warm first frame faster than the
               cold one, which builds the kernels); build_artifacts for
               pix_shuffle and conv3 (their ONNX bytes the committed ones)
-19. train_drivers  slice 12's training and NAS drivers (scripts/), each
+20. train_drivers  slice 12's training and NAS drivers (scripts/), each
               through its main on the card on the datagen phase's tree,
               outputs in temporary directories, K1's counter from 0 for
               each: the JAX package's random VGG basis drawn cold
@@ -181,11 +199,11 @@ Phases, each printing one JSON line with its wall time:
               hit); convert_vgg16_weights (exit 1 naming torchvision); the
               retention probe at 8 MB x 50 (GB retained per GB sent). The
               trainers' pid file holds this process's pid and is removed
-20. kernel_bench  the two kernel benches (slice 3's main path), about half
+21. kernel_bench  the two kernel benches (slice 3's main path), about half
               a second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-21. timing    K1's and K2's device time a call (median, min and max of 3
+22. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -204,7 +222,7 @@ Phases, each printing one JSON line with its wall time:
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-22. kernels   every kernel launched, held against its plain version
+23. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -308,6 +326,22 @@ DRIVER_CLIENTS, DRIVER_DEPTHS, DRIVER_SERVE_S = (1, 2), (0, 2), 1.0
 DRIVER_WINDOW_S, DRIVER_EVAL_SAMPLES = 0.5, 8
 # slice 12: the VGG self-training's steps in the train_drivers phase
 TRAIN_DRIVERS_VGG_STEPS = 20
+# slice 13: the run recipes, and how the recipes phase cuts their amount of
+# work through each recipe's pass-through (never the crop or the frame
+# size): the generator on the datagen phase's two images at 16 crops (4 an
+# image and scale: the generator adds the undownscaled scale to the one
+# downscale, as the reference's does), two palettes, two dithers, one
+# rotation; one epoch of 32 training and 8 validation samples (one optimizer
+# step at the recipe's batch 8 and accumulation 4); the C replay tool's
+# sessions of one frame, a warm-up (the session's set-up and the pipeline's
+# fill) and a measured window
+RECIPES = os.path.join(REPO, "fs_uae_image_enhancer_project_tpu_torch", "recipes")
+RECIPE_GENERATE_CUT = ("--palette", "64", "256", "--dither", "none", "bayer4x4",
+                       "--rotation", "0", "--downscale", "90", "--max_crops_per_image", "4")
+RECIPE_CROPS = 16
+RECIPE_TRAIN_CUT = ("--epochs", "1", "--train_samples", "32", "--val_samples", "8")
+RECIPE_REPLAY_WARMUP = 16
+RECIPE_REPLAY_LOOPS = 400
 
 # a child that imports only the port: load the artifact, enhance the frames,
 # save them and K1's launches
@@ -687,6 +721,21 @@ def timed_stages(dev, run) -> dict:
     return {"total_s": total, **{k: {"s": v[0], "calls": v[1]} for k, v in spent.items()}}
 
 
+def source_images(src: str) -> None:
+    """The datagen phase's source tree in ``src``: two seeded 1504x1152
+    images, with noise strong enough that a lores crop keeps more than 256
+    RGB444 colours, as a photo does: the k-means path runs, not the
+    unique-colour fallback (at sigma 24 most crops fall back)."""
+    from PIL import Image
+
+    from fs_uae_image_enhancer_project_tpu_torch.scripts.common import gradient_noise
+
+    os.makedirs(src)
+    for i in range(2):
+        Image.fromarray(gradient_noise(1152, 1504, seed=10 + i, sigma=48.0)).save(
+            os.path.join(src, f"img_{i}.png"))
+
+
 def datagen(dev, tree_dir=None) -> dict:
     """The port's generator on ``dev`` (slice 2's main path): two seeded
     1504x1152 images, 376x288 lores crops (at most 8 per image), kmeans_torch
@@ -707,7 +756,6 @@ def datagen(dev, tree_dir=None) -> dict:
         pre_apply_resolution_style)
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
     from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
-    from fs_uae_image_enhancer_project_tpu_torch.scripts.common import gradient_noise
 
     def sync():
         if dev.type == "cuda":
@@ -715,13 +763,7 @@ def datagen(dev, tree_dir=None) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "src")
-        os.makedirs(src)
-        # noise strong enough that a lores crop keeps more than 256 RGB444
-        # colours, as a photo does: the k-means path runs, not the
-        # unique-colour fallback (at sigma 24 most crops fall back)
-        for i in range(2):
-            Image.fromarray(gradient_noise(1152, 1504, seed=10 + i, sigma=48.0)).save(
-                os.path.join(src, f"img_{i}.png"))
+        source_images(src)
 
         def gen_cfg(dest, images, workers=1, **kw):
             return GeneratorConfig(
@@ -2520,6 +2562,207 @@ def check_train_drivers(rec: dict, dev, long_epochs: int = 2, long_samples: int 
           f"retention probe: {pr}")
 
 
+def compile_replay(out_dir: str) -> str:
+    """The emulator's C client built as its replay tool
+    (``runtime/sidecar_client.c``, ``-DFSE_REPLAY_MAIN``) into ``out_dir``
+    with the host's C compiler; no compiler fails the phase."""
+    cc = shutil.which("cc") or shutil.which("gcc")
+    check(cc is not None, "no C compiler (cc or gcc) to build runtime/sidecar_client.c")
+    binary = os.path.join(out_dir, "sidecar_replay")
+    r = subprocess.run([cc, "-O2", "-std=c11", "-DFSE_REPLAY_MAIN",
+                        os.path.join(REPO, "runtime", "sidecar_client.c"), "-o", binary],
+                       capture_output=True, text=True, timeout=120)
+    check(r.returncode == 0, f"{cc} failed on sidecar_client.c: {r.stderr[-2000:]}")
+    return binary
+
+
+def recipes(dev, frame, direct) -> dict:
+    """Slice 13: the deployed chain through the port's run recipes, each run
+    with ``bash`` in a temporary directory with ``PYTHON`` this interpreter,
+    on ``dev`` (the recipes' default, the card; ``--device cpu`` is passed
+    through for a CPU rehearsal), their work cut only through the
+    pass-through:
+
+    - ``prepare_groundtruth.sh`` on the datagen phase's two source images;
+    - ``generate_dataset.sh`` on its output at :data:`RECIPE_GENERATE_CUT`
+      (376x288 lores crops, the device route): the tree, and the generator's
+      last line, its summary with K3's launches in the recipe's child;
+    - ``train_pix_shuffle.sh`` on that tree at :data:`RECIPE_TRAIN_CUT`: the
+      CSV, the best checkpoint and the metrics line, whose
+      ``val_k1_launches`` counts K1 in the child's validation;
+    - ``serve_sidecar.sh`` as a child with the shipped graph and ``--stats``,
+      waited for with ``wait_for_line``; the C replay tool sends ``frame`` in
+      a warm-up session of :data:`RECIPE_REPLAY_WARMUP` frames and a
+      measured one of :data:`RECIPE_REPLAY_LOOPS`, the Python client once,
+      then shuts the server down. Both answers against ``direct`` (this
+      process's enhance of ``frame``), and the server's K1 launches and
+      latency from its stats. Then ``socket_floor``: the replay tool's
+      measured session against this package's server in this process with
+      an identity enhance on the host, the server's own per-frame cost with
+      no device work at all.
+
+    Each step's seconds are in ``step_seconds``.
+    """
+    import numpy as np
+    from PIL import Image
+
+    from fs_uae_image_enhancer_project_tpu_torch.runtime.sidecar import (
+        SidecarClient, SidecarServer)
+    from fs_uae_image_enhancer_project_tpu_torch.utils.subproc import wait_for_line
+
+    on_cpu = () if dev.type == "cuda" else ("--device", "cpu")
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHON=sys.executable,
+               PYTHONPATH=REPO + (os.pathsep + path if path else ""))
+    rec: dict = {"step_seconds": {}}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, *args) -> str:
+            t0 = time.perf_counter()
+            r = subprocess.run(["bash", os.path.join(RECIPES, name), *args], cwd=tmp, env=env,
+                               capture_output=True, text=True, timeout=300)
+            rec["step_seconds"][name] = time.perf_counter() - t0
+            check(r.returncode == 0, f"{name} exited {r.returncode}: {r.stderr[-3000:]}")
+            return r.stdout
+
+        def replay(sock: str, loops: int) -> dict:
+            r = subprocess.run([binary, sock, raw_in, raw_out, str(loops)],
+                               capture_output=True, text=True, timeout=120)
+            check(r.returncode == 0, f"the C replay tool exited {r.returncode}: {r.stderr}")
+            return json.loads(r.stdout.strip().splitlines()[-1])
+
+        binary = compile_replay(tmp)
+        src, gt = os.path.join(tmp, "src"), os.path.join(tmp, "gt")
+        source_images(src)
+        run("prepare_groundtruth.sh", src, gt)
+        sizes = {}
+        for name in sorted(os.listdir(gt)):
+            with Image.open(os.path.join(gt, name)) as im:
+                sizes[name] = list(im.size)
+        rec["groundtruth"] = sizes
+
+        data = os.path.join(tmp, "data")
+        out = run("generate_dataset.sh", gt, "", data, "--test_images", *RECIPE_GENERATE_CUT,
+                  "--cache_dir", os.path.join(tmp, "cache"), "--verbose", "0", *on_cpu)
+        summary = json.loads(out.strip().splitlines()[-1])
+        files = [os.path.join(r, f) for r, _d, fs in os.walk(data) for f in fs]
+        targets = [f for f in files if os.path.basename(f).startswith("target_")]
+        crop_sizes = set()
+        for f in files:
+            with Image.open(f) as im:
+                crop_sizes.add(im.size)
+        rec["generate"] = dict(files=len(files), targets=len(targets),
+                               styled=len(files) - len(targets),
+                               crop_sizes=sorted(list(x) for x in crop_sizes), summary=summary)
+
+        ck = os.path.join(tmp, "ckpt")
+        run("train_pix_shuffle.sh", os.path.join(data, "train"), ck, *RECIPE_TRAIN_CUT,
+            "--verbose", "0", *on_cpu)
+        with open(os.path.join(ck, "training_stats_pix_shuffle.csv")) as f:
+            rows = [line.rstrip("\n").split(",") for line in f]
+        with open(os.path.join(ck, "metrics_pix_shuffle.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        rec["train"] = dict(
+            csv_epochs=[int(r[0]) for r in rows[1:]], metrics=metrics,
+            best_checkpoint=sorted(os.listdir(os.path.join(ck, "checkpoint_best_pix_shuffle"))))
+
+        sock, stats = os.path.join(tmp, "fse.sock"), os.path.join(tmp, "stats.json")
+        raw_in, raw_out = os.path.join(tmp, "in.raw"), os.path.join(tmp, "out.raw")
+        np.ascontiguousarray(frame).tofile(raw_in)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            ["bash", os.path.join(RECIPES, "serve_sidecar.sh"), sock, "pix_shuffle", ONNX,
+             "--stats", stats, *on_cpu],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            ready, lines = wait_for_line(proc, "SIDECAR_READY", timeout=180)
+            check(ready, f"serve_sidecar.sh did not come up: {lines[-5:]}")
+            warm = replay(sock, RECIPE_REPLAY_WARMUP)
+            c_line = replay(sock, RECIPE_REPLAY_LOOPS)
+            client = SidecarClient(sock, timeout=60.0)
+            try:
+                first = client.submit(frame)
+                py_out = first if first is not None else client.drain()[0]
+                client.shutdown_server()
+            finally:
+                client.close()
+            server_rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        rec["step_seconds"]["serve_sidecar.sh"] = time.perf_counter() - t0
+        c_out = np.fromfile(raw_out, np.uint8).reshape(frame.shape)
+        with open(stats) as f:
+            served = json.load(f)
+
+        floor = SidecarServer(lambda x: x, os.path.join(tmp, "floor.sock"),
+                              depth=SERVE_DEPTH, verbose=0, device="cpu", client_timeout=60.0)
+        floor.bind()
+        th = threading.Thread(target=floor.serve_forever, daemon=True)
+        th.start()
+        try:
+            floor_line = replay(floor.socket_path, RECIPE_REPLAY_LOOPS)
+        finally:
+            client = SidecarClient(floor.socket_path, timeout=60.0)
+            client.shutdown_server()
+            client.close()
+            th.join(timeout=10)
+        rec["serve"] = dict(
+            server_rc=server_rc, replay_warmup=warm, replay=c_line, depth=served["depth"],
+            frames=served["frames"], k1_launches=served["k1_launches"],
+            **{k: served[k] for k in ("p50_ms", "p90_ms", "mean_ms", "max_ms")},
+            c_equal_python=bool(np.array_equal(c_out, py_out)),
+            c_equal_direct=bool(np.array_equal(c_out, direct)),
+            python_equal_direct=bool(np.array_equal(py_out, direct)),
+            socket_floor=floor_line)
+    rec["launches"] = {
+        "fused_stack": sum(m["val_k1_launches"] for m in rec["train"]["metrics"])
+        + rec["serve"]["k1_launches"],
+        "palette_dither": rec["generate"]["summary"]["k3_launches"]}
+    return rec
+
+
+def check_recipes(rec: dict, dev) -> None:
+    """The chain's outputs; K1 and K3 counted on the card only (the CPU
+    takes their plain versions, which count nothing)."""
+    on_card = dev.type == "cuda"
+    check(len(rec["groundtruth"]) == 2
+          and all(w <= 1920 and h <= 1080 for w, h in rec["groundtruth"].values()),
+          f"prepare_groundtruth.sh: {rec['groundtruth']}")
+    gen = rec["generate"]
+    summ = gen["summary"]
+    check(gen["targets"] == RECIPE_CROPS and gen["styled"] == 4 * gen["targets"]
+          and gen["crop_sizes"] == [[CROP_W, CROP_H]],
+          f"generate_dataset.sh wrote {gen['targets']} targets, {gen['styled']} styled crops "
+          f"of sizes {gen['crop_sizes']}")
+    check(summ["missing"] == 0 and not summ["stopped"]
+          and summ["expected"] == summ["present"] == summ["generated_this_run"] == gen["files"],
+          f"the generator's summary {summ} against the {gen['files']} files written")
+    check((summ["k3_launches"] > 0) == on_card,
+          f"K3 launched {summ['k3_launches']} times in the recipe's generator")
+    trn = rec["train"]
+    check(trn["csv_epochs"] == [1] and [m["epoch"] for m in trn["metrics"]] == [1],
+          f"train_pix_shuffle.sh: CSV epochs {trn['csv_epochs']}, metrics {trn['metrics']}")
+    check(all(math.isfinite(m["train_loss"]) and math.isfinite(m["val_loss"])
+              for m in trn["metrics"]), f"train_pix_shuffle.sh losses: {trn['metrics']}")
+    check(bool(trn["best_checkpoint"]), "train_pix_shuffle.sh saved no best checkpoint")
+    check((trn["metrics"][0]["val_k1_launches"] > 0) == on_card,
+          f"validation launched K1 {trn['metrics'][0]['val_k1_launches']} times")
+    srv = rec["serve"]
+    check(srv["server_rc"] == 0 and srv["depth"] == SERVE_DEPTH
+          and srv["replay_warmup"]["frames"] == RECIPE_REPLAY_WARMUP
+          and srv["replay"]["frames"] == RECIPE_REPLAY_LOOPS
+          and srv["replay"]["depth"] == SERVE_DEPTH
+          and srv["frames"] == RECIPE_REPLAY_WARMUP + RECIPE_REPLAY_LOOPS + 1,
+          f"serve_sidecar.sh: {srv}")
+    check(srv["c_equal_python"] and srv["c_equal_direct"] and srv["python_equal_direct"],
+          f"served frames differ: {srv}")
+    check((srv["k1_launches"] > 0) == on_card, f"the server launched K1 {srv['k1_launches']} times")
+    check(srv["socket_floor"]["frames"] == RECIPE_REPLAY_LOOPS
+          and srv["socket_floor"]["ms_per_frame"] > 0, f"socket floor: {srv['socket_floor']}")
+
+
 def op_dispatch(dev, enhance_direct, enhance_op, u, sw, frame_dev, rounds: int = 4) -> dict:
     """K1's custom op against its direct call: the host's µs a call (200
     calls queued without a synchronise) and the pix_shuffle enhance's ms a
@@ -2767,7 +3010,16 @@ def main(argv=None) -> int:
     check(launches["fused_stack"] > 0, "the server ran without launching K1")
     emit("server", t0, launches=launches, **served)
 
-    # 9. families: slice 7's main path, every counter from 0
+    # 9. recipes: slice 13's run recipes, the deployed chain on the card
+    _phase = "recipes"
+    t0 = time.perf_counter()
+    for counter in _counters().values():
+        counter.launches = 0
+    rcp = recipes(dev, frames[0], outs[0][0])
+    emit("recipes", t0, **rcp, nvidia_smi=smi)
+    check_recipes(rcp, dev)
+
+    # 10. families: slice 7's main path, every counter from 0
     _phase = "families"
     t0 = time.perf_counter()
     fam = families(dev)
@@ -2775,14 +3027,14 @@ def main(argv=None) -> int:
          launches=fam["launches"], max_levels=FAMILY_MAX_LEVELS, window=FAMILY_WINDOW)
     check_families(fam)
 
-    # 10. parallel_tools: slice 8's paths, K1's launches counted on each
+    # 11. parallel_tools: slice 8's paths, K1's launches counted on each
     _phase = "parallel_tools"
     t0 = time.perf_counter()
     ptools = parallel_tools(dev)
     emit("parallel_tools", t0, **ptools, split_tol_max_abs=K1_MAX_ABS, nvidia_smi=smi)
     check_parallel_tools(ptools, dev)
 
-    # 11. datagen: slice 2's main path, every counter from 0
+    # 12. datagen: slice 2's main path, every counter from 0
     _phase = "datagen"
     t0 = time.perf_counter()
     work = tempfile.TemporaryDirectory()
@@ -2807,7 +3059,7 @@ def main(argv=None) -> int:
     check(dg["workers2_files_differing_from_batched"] == 0,
           "the two-worker per-crop route's PNGs differ from the batched run's")
 
-    # 12. train: slice 6's main path on the datagen phase's tree, K1's counter
+    # 13. train: slice 6's main path on the datagen phase's tree, K1's counter
     # from 0 (the train steps must not launch it; validation does)
     _phase = "train"
     t0 = time.perf_counter()
@@ -2817,7 +3069,7 @@ def main(argv=None) -> int:
     check_train(trn, dev)
     check_train_mesh(trn["mesh"], dev)
 
-    # 13. nas: slice 9's NAS entry point on the datagen phase's tree, cut to
+    # 14. nas: slice 9's NAS entry point on the datagen phase's tree, cut to
     # 128x96 (conv6 runs eager cuDNN: no kernel of the repo on this path)
     _phase = "nas"
     t0 = time.perf_counter()
@@ -2831,35 +3083,35 @@ def main(argv=None) -> int:
               f"ms/step {t['ms_per_step']} val {t['val_loss']} {t['state']}", flush=True)
     check_nas(nas_rec)
 
-    # 14. tools: the VGG self-training, raw_runner (K1) and the ONNX tools
+    # 15. tools: the VGG self-training, raw_runner (K1) and the ONNX tools
     _phase = "tools"
     t0 = time.perf_counter()
     tools_rec = tools(dev)
     emit("tools", t0, **tools_rec, nvidia_smi=smi)
     check_tools(tools_rec, dev)
 
-    # 15. export: slice 10's torch.export route (K1 as the custom op)
+    # 16. export: slice 10's torch.export route (K1 as the custom op)
     _phase = "export"
     t0 = time.perf_counter()
     exp = export_phase(dev)
     emit("export", t0, families=exp, nvidia_smi=smi)
     check_export(exp, dev)
 
-    # 16. int8: slice 10's int8 path and the study
+    # 17. int8: slice 10's int8 path and the study
     _phase = "int8"
     t0 = time.perf_counter()
     i8 = int8_phase(dev)
     emit("int8", t0, **i8, nvidia_smi=smi)
     check_int8(i8, dev)
 
-    # 17. benchmark_tools: slice 10's four design tools, reduced grids
+    # 18. benchmark_tools: slice 10's four design tools, reduced grids
     _phase = "benchmark_tools"
     t0 = time.perf_counter()
     bt = benchmark_tools_phase(dev)
     emit("benchmark_tools", t0, **bt, nvidia_smi=smi)
     check_benchmark_tools(bt)
 
-    # 18. drivers: slice 11's scripts, every counter from 0
+    # 19. drivers: slice 11's scripts, every counter from 0
     _phase = "drivers"
     t0 = time.perf_counter()
     for counter in _counters().values():
@@ -2869,7 +3121,7 @@ def main(argv=None) -> int:
     emit("drivers", t0, **drv, launches=drv_launches, nvidia_smi=smi)
     check_drivers(drv, dev)
 
-    # 19. train_drivers: slice 12's training and NAS drivers on the datagen
+    # 20. train_drivers: slice 12's training and NAS drivers on the datagen
     # phase's tree, K1's counter from 0 for each
     _phase = "train_drivers"
     t0 = time.perf_counter()
@@ -2878,7 +3130,7 @@ def main(argv=None) -> int:
     emit("train_drivers", t0, **tdrv, nvidia_smi=smi)
     check_train_drivers(tdrv, dev)
 
-    # 20. kernel_bench: slice 3's main path, every counter from 0
+    # 21. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -2888,7 +3140,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 21. timing at the main paths' shapes
+    # 22. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -2962,7 +3214,7 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 22. kernels
+    # 23. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
@@ -2974,6 +3226,7 @@ def main(argv=None) -> int:
         export_launches=exp["pix_shuffle"]["k1_launches"],
         export_child_launches=exp["pix_shuffle"]["child"]["k1_launches"],
         int8_study_launches=i8["k1_launches"], drivers_launches=drv_launches["fused_stack"],
+        recipes_launches=rcp["launches"]["fused_stack"],
         train_drivers_launches={k: r["k1_launches"] for k, r in tdrv.items()
                                 if isinstance(r, dict) and "k1_launches" in r},
         max_abs_err=k1_err, ms=k1_ms, kernel_ms=k1_ms,
@@ -2984,6 +3237,7 @@ def main(argv=None) -> int:
              at="16 lores crops 188x144, N=256, ordered 4x4",
              launches=dg["launches"]["palette_dither"], max_abs_err=k3_par["max_abs_err"],
              drivers_launches=drv_launches["palette_dither"],
+             recipes_launches=rcp["launches"]["palette_dither"],
              ms=k3_ref["k3_ms"],
              kernel_ms=k3_ref["k3_ms"], plain_ms=k3_ref["plain_ms"],
              bound_ms=k3_ref["bound_ms"], bound_by=k3_ref["bound_by"],

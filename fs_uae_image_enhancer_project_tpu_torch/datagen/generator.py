@@ -31,6 +31,7 @@ there) runs the palette dither through the CUDA kernel K3 on ``device``
 from __future__ import annotations
 
 import dataclasses
+import json
 import multiprocessing
 import os
 import signal
@@ -721,7 +722,8 @@ class DatasetGenerator:
 # CLI (argument surface mirrors reference generator.py:1648-1670)
 # ---------------------------------------------------------------------------
 
-def main(argv: Optional[List[str]] = None) -> int:
+def build_parser():
+    """The generator's command line (the reference's flags)."""
     import argparse
 
     ap = argparse.ArgumentParser(description="Idempotent dataset generator")
@@ -781,6 +783,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--cache_dir", default=".scan_cache")
     ap.add_argument("--interactive", action="store_true")
     ap.add_argument("--verbose", type=int, default=1)
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
 
     if args.colorspace and args.rgb:
@@ -818,7 +825,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         assume_yes=not args.interactive,
         verbose=args.verbose,
     )
+    from ..ops.cuda import dither as k3
+
+    k3_before = k3.palette_dither.launches
     stats = DatasetGenerator(cfg).run()
+    # the last line of the output, whatever --verbose: the run's summary and
+    # the dither kernel's launches in this process (the device route's only
+    # kernel), which a parent running this CLI as a child cannot count
+    print(json.dumps(dict(stats, k3_launches=k3.palette_dither.launches - k3_before)),
+          flush=True)
     return 0 if stats["missing"] == 0 or stats["stopped"] else 1
 
 

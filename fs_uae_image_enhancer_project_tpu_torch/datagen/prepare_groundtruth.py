@@ -92,7 +92,8 @@ def prepare_tree(
     return results
 
 
-def main(argv=None) -> int:
+def build_parser():
+    """The command line of :func:`main`."""
     import argparse
 
     ap = argparse.ArgumentParser(description="Normalize sources to sRGB PNGs")
@@ -105,6 +106,11 @@ def main(argv=None) -> int:
                     help="fit within WIDTH x HEIGHT (the reference's flag "
                          "spelling, prepare_groundtruth.py:56-58)")
     ap.add_argument("--workers", type=int, default=32)
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
     max_size = tuple(args.max_crop_size) if args.max_crop_size else args.max_dim
     results = prepare_tree(args.src, args.dst, max_size, args.workers)

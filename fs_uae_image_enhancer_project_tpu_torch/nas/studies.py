@@ -384,7 +384,8 @@ STUDY_PRESETS = {
 }
 
 
-def main(argv=None) -> int:
+def build_parser():
+    """The study's command line (JAX's flags, ``--fps_cache`` and ``--device``)."""
     import argparse
 
     ap = argparse.ArgumentParser(description="Run a NAS activation study")
@@ -406,6 +407,11 @@ def main(argv=None) -> int:
                     help="the FPS cache's JSON file (keys name the card)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda with no card raises")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
 
     train_pairs = val_pairs = None

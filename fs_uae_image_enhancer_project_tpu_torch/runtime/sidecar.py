@@ -47,6 +47,7 @@ import socket
 import sys
 import threading
 import time
+from collections import deque
 from typing import Callable, Optional
 
 import numpy as np
@@ -106,8 +107,6 @@ class SidecarServer:
         # so an unbounded per-frame float list is a slow leak. Percentiles
         # come from a recent-window deque; lifetime totals and the artifact
         # histogram accumulate online in O(1) memory.
-        from collections import deque
-
         self._lat_window: "deque[float]" = deque(maxlen=self.LAT_WINDOW)
         self._lat_count = 0
         self._lat_sum = 0.0
@@ -272,57 +271,65 @@ class SidecarServer:
         # order, so the output surfacing now belongs to the OLDEST pending
         # frame. Latency = enqueue -> enhanced bytes in host memory; the
         # socket sendall that follows is deliberately outside the window.
-        pending_t0: list = []
+        pending_t0: "deque[float]" = deque()
         lat_ms: list = []
-        while True:
-            op = _recv_exact(conn, 1)
-            if op is None:
-                break
-            if op[0] == OP_FRAME:
-                payload = _recv_exact(conn, self.frame_bytes)
-                if payload is None:
-                    break
-                frame = np.frombuffer(payload, np.uint8).reshape(
-                    1, self.h, self.w, 4
-                )
-                n_in += 1
-                t0 = time.perf_counter()
-                pending_t0.append(t0)
-                if self.depth == 0:
-                    out = self.fn(torch.from_numpy(frame)).cpu().numpy()
-                    lat_ms.append(
-                        (time.perf_counter() - pending_t0.pop(0)) * 1e3)
-                    conn.sendall(bytes([RE_FRAME]) + out.tobytes())
-                    n_out += 1
-                else:
-                    out = stream.submit(frame)
-                    if out is not None:
-                        lat_ms.append(
-                            (time.perf_counter() - pending_t0.pop(0)) * 1e3)
-                        conn.sendall(bytes([RE_FRAME]) + out.tobytes())
-                        n_out += 1
-            elif op[0] == OP_DRAIN:
-                for out in stream.drain():
-                    if pending_t0:
-                        lat_ms.append(
-                            (time.perf_counter() - pending_t0.pop(0)) * 1e3)
-                    conn.sendall(bytes([RE_FRAME]) + out.tobytes())
-                    n_out += 1
-                conn.sendall(bytes([RE_DRAIN_DONE]))
-            elif op[0] == OP_SHUTDOWN:
-                self._log(f"shutdown requested ({n_in} in / {n_out} out)")
+
+        def answer(out) -> None:
+            nonlocal n_out
+            if pending_t0:
+                lat_ms.append((time.perf_counter() - pending_t0.popleft()) * 1e3)
+            conn.sendall(bytes([RE_FRAME]) + out.tobytes())
+            n_out += 1
+            # a session may last hours: fold its latencies into the
+            # server's record every LAT_FLUSH frames, so latency_stats()
+            # sees them while the client is connected
+            if len(lat_ms) >= self.LAT_FLUSH:
                 self._record_latencies(lat_ms)
-                return False
-            else:
-                self._log(f"bad opcode 0x{op[0]:02x}; closing client")
-                break
+                lat_ms.clear()
+
+        try:
+            while True:
+                op = _recv_exact(conn, 1)
+                if op is None:
+                    break
+                if op[0] == OP_FRAME:
+                    payload = _recv_exact(conn, self.frame_bytes)
+                    if payload is None:
+                        break
+                    frame = np.frombuffer(payload, np.uint8).reshape(
+                        1, self.h, self.w, 4
+                    )
+                    n_in += 1
+                    pending_t0.append(time.perf_counter())
+                    if self.depth == 0:
+                        answer(self.fn(torch.from_numpy(frame)).cpu().numpy())
+                    else:
+                        out = stream.submit(frame)
+                        if out is not None:
+                            answer(out)
+                elif op[0] == OP_DRAIN:
+                    for out in stream.drain():
+                        answer(out)
+                    conn.sendall(bytes([RE_DRAIN_DONE]))
+                elif op[0] == OP_SHUTDOWN:
+                    self._log(f"shutdown requested ({n_in} in / {n_out} out)")
+                    return False
+                else:
+                    self._log(f"bad opcode 0x{op[0]:02x}; closing client")
+                    break
+        finally:
+            # also when the session ends in a socket error or the idle
+            # timeout: the frames it served are counted
+            self._record_latencies(lat_ms)
         self._log(f"client disconnected ({n_in} in / {n_out} out)")
-        self._record_latencies(lat_ms)
         return True
 
     # recent-window size for percentile estimation (~18 min at 60 fps;
     # ~0.5 MB of floats, the memory ceiling regardless of uptime)
     LAT_WINDOW = 65536
+    # frames a session serves between folds of its latencies into the
+    # record (~17 s at 60 fps)
+    LAT_FLUSH = 1024
 
     def _record_latencies(self, lat_ms: list) -> None:
         if not lat_ms:
@@ -429,7 +436,8 @@ def build_enhance_fn(model: str = "pix_shuffle", weights: Optional[str] = None,
     return enhance_from_onnx(weights, device=device)
 
 
-def main(argv=None) -> int:
+def build_parser():
+    """The server's command line."""
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -455,6 +463,11 @@ def main(argv=None) -> int:
                     help="write a server-side per-frame latency summary + "
                          "histogram JSON here on exit (latency excludes "
                          "socket RTT)")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
 
     fn = build_enhance_fn(args.model, args.weights, device=args.device)

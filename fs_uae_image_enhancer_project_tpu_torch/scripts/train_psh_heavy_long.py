@@ -22,13 +22,19 @@ from __future__ import annotations
 import os
 import sys
 
+from . import train_psh_long
 from .common import WORK_DIR
-from .train_psh_long import run
+
+OUT = os.path.join(WORK_DIR, "train_psh")
+DESCRIPTION = "Long fresh pix_shuffle_heavy training run"
+
+
+def build_parser():
+    return train_psh_long.build_parser(OUT, DESCRIPTION)
 
 
 def main(argv=None) -> int:
-    return run(argv, "heavyweight", os.path.join(WORK_DIR, "train_psh"),
-               "Long fresh pix_shuffle_heavy training run")
+    return train_psh_long.run(argv, "heavyweight", OUT, DESCRIPTION)
 
 
 if __name__ == "__main__":

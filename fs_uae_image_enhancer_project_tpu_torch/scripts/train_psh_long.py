@@ -33,9 +33,10 @@ import sys
 from .common import WORK_DIR
 
 
-def run(argv, variant: str, out_default: str, description: str) -> int:
-    """The long run of pix_shuffle's ``variant``: parse ``argv``, train,
-    print the summary line."""
+def build_parser(out_default: str, description: str) -> argparse.ArgumentParser:
+    """The long run's command line (the root script's flags plus
+    ``--samples_dir`` and ``--device``), ``--out`` defaulting to
+    ``out_default``."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--data", default=os.path.join(WORK_DIR, "dataset_lores", "train"))
     ap.add_argument("--out", default=out_default)
@@ -49,7 +50,13 @@ def run(argv, variant: str, out_default: str, description: str) -> int:
     ap.add_argument("--samples_dir", default=None,
                     help="frames rendered at each new best (default: none)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def run(argv, variant: str, out_default: str, description: str) -> int:
+    """The long run of pix_shuffle's ``variant``: parse ``argv``, train,
+    print the summary line."""
+    args = build_parser(out_default, description).parse_args(argv)
 
     from ..data import SRDataset, gather_all_samples_from_directory, split_pairs
     from ..losses import vgg as vgg_mod

@@ -59,7 +59,8 @@ def _train_rank(args, train_pool, val_pool):
     return _train(args, train_pool, val_pool, mesh)
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def build_parser():
+    """The JAX CLI's flags plus ``--device``."""
     import argparse
 
     ap = argparse.ArgumentParser(description="Train an image enhancement model.")
@@ -98,6 +99,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; nccl, one card a rank) or cpu (gloo "
                          "processes); cuda with no card raises")
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
     if args.edge_checkpoint_path is not None and args.verbose >= 1:
         print("Warning: --edge_checkpoint_path is accepted for compatibility "

@@ -8,7 +8,9 @@ and per-epoch metrics (JSONL).
 - Training differentiates the eager forward (``models.train_apply``);
   validation runs ``model.apply`` in the compute dtype under
   ``torch.no_grad()``, so on a card the lightweight pix_shuffle validates
-  through the fused-stack kernel K1. Sample renders run in fp32 (eager).
+  through the fused-stack kernel K1 (each epoch's metrics line counts its
+  validation's launches, ``val_k1_launches``). Sample renders run in fp32
+  (eager).
 - With a ``mesh`` (``parallel.mesh.make_mesh``, one process a rank) the
   state is replicated from rank 0, each rank loads only its dp share of
   every batch and keeps its block of rows over sp for training (whole frames
@@ -40,6 +42,7 @@ from .. import resolve_device
 from ..data.dataset import SRDataset, batch_transform, device_prefetch
 from ..losses.perceptual import build_criterion
 from ..models import ModelDef, train_apply
+from ..ops.cuda import fused_stack as k1
 from ..parallel.mesh import all_reduce_
 from ..parallel.train_step import (
     TrainState,
@@ -403,6 +406,7 @@ class Trainer:
 
             # ---- validate ----
             val_losses: List[torch.Tensor] = []
+            k1_before = k1.fused_stack.launches
             if val_ds is not None and val_ds.pool:
                 for lr_b, hr_b in device_prefetch(eval_batches(val_ds), device=dev):
                     val_losses.append(eval_loss(state.params, state.buffers, lr_b, hr_b))
@@ -432,7 +436,8 @@ class Trainer:
                                     current_lr, epoch_ckpt)
 
             self._log_metrics(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
-                              lr=current_lr, seconds=round(time.time() - t_epoch, 2))
+                              lr=current_lr, seconds=round(time.time() - t_epoch, 2),
+                              val_k1_launches=k1.fused_stack.launches - k1_before)
             self._log(f"Epoch [{epoch}/{cfg.num_epochs}] Train {train_loss:.4f} "
                       f"Val {val_loss:.4f} Patience "
                       f"{cfg.early_stopping_patience - no_improve} LR {current_lr:.6f}")

@@ -12,7 +12,8 @@ reduced grids.
   and a reduced search on the CPU;
 - gamma: the curves and the fp32 and bf16 error tables against JAX's gamma
   functions, the SVG and the command line;
-- ``chip_smoke.py``'s ``benchmark_tools`` phase rehearsed at a small size.
+- ``chip_smoke.py``'s ``benchmark_tools`` phase is rehearsed in
+  ``test_torch_benchmark_tools_phase.py``.
 """
 import importlib
 import os
@@ -133,12 +134,3 @@ def test_gamma_tables_match_jax(tmp_path, capsys):
     svg = open(out).read()
     assert svg.startswith("<svg") and svg.rstrip().endswith("</svg>")
     assert svg.count("<polyline") == 10 and "1/255 (8-bit LSB)" in svg
-
-
-def test_chip_smoke_benchmark_tools_rehearsal():
-    import chip_smoke as cs
-
-    rec = cs.benchmark_tools_phase(torch.device("cpu"), duration_s=0.002, shape=(8, 12),
-                                   act_shape=(1, 6, 8, 12))
-    cs.check_benchmark_tools(rec)
-    assert len(rec["activations"]["table"]) == len(acts.default_names())

@@ -7,7 +7,9 @@ and the import rule: the port and chip_smoke.py import neither jax nor the
 JAX package.
 """
 import ast
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -238,6 +240,26 @@ def test_port_chip_smoke_and_card_tests_import_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_port_recipes_name_no_jax_package_or_root_script():
+    """The port's run recipes start the port's modules through ``$PYTHON``
+    (``python3`` by default) and name nothing of the JAX package and no root
+    ``scripts/`` file."""
+    recipes = sorted(glob.glob(os.path.join(PORT, "recipes", "*.sh")))
+    root = sorted(glob.glob(os.path.join(REPO, "recipes", "*.sh")))
+    assert [os.path.basename(r) for r in recipes] == [os.path.basename(r) for r in root]
+    assert len(recipes) == 14
+    for path in recipes:
+        with open(path) as f:
+            text = f.read()
+        assert "fs_uae_image_enhancer_project_tpu." not in text, path
+        assert not re.search(r"(^|[\s\"'/.])scripts/", text), path
+        assert "jax" not in text.lower(), path
+        runs = re.findall(r'"\$\{PYTHON:-python3\}" -m (\S+)', text)
+        assert runs and all(m.startswith("fs_uae_image_enhancer_project_tpu_torch.")
+                            for m in runs), path
+        assert not re.search(r"(^|\s)python3? ", text, re.M), path
 
 
 def test_chip_smoke_fails_without_a_card():

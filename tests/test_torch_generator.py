@@ -15,6 +15,7 @@ dithers none, checkerboard, bayer4x4 and floyd-steinberg):
   reporting, the CLI with ``--device cpu``, and the ``cuda`` default raising
   without a card.
 """
+import json
 import os
 
 import numpy as np
@@ -174,7 +175,7 @@ def test_batched_stop_at_chunk_boundary_then_resume(source_tree, monkeypatch):
     _assert_same_tree(_tree(part_cfg.dest_dir), full)
 
 
-def test_cli_with_device_cpu(source_tree):
+def test_cli_with_device_cpu(source_tree, capsys):
     dest = source_tree / "cli"
     rc = gen_mod.main([
         "--train_images", str(source_tree / "src"), "--dest_dir", str(dest),
@@ -185,8 +186,11 @@ def test_cli_with_device_cpu(source_tree):
         "--workers", "1", "--cache_dir", str(source_tree / "cache_cli"), "--verbose", "0",
     ])
     assert rc == 0
+    # the last line is the run's summary with K3's launches (none on the CPU)
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     api = _cfg(source_tree, "api", device_batch=2)
-    assert DatasetGenerator(api).run()["missing"] == 0
+    stats = DatasetGenerator(api).run()
+    assert stats["missing"] == 0 and last == dict(stats, k3_launches=0)
     _assert_same_tree(_tree(str(dest)), _tree(api.dest_dir))
 
 

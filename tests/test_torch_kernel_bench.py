@@ -94,14 +94,6 @@ def test_k4_parity_and_timing_phases_on_the_cpu(monkeypatch):
     assert o.shape == (8, 16) and acc.shape == (8, 8)
 
 
-def test_kernel_bench_phase_counts_no_launch_on_the_cpu():
-    kb = cs.kernel_bench(CPU, duration_s=0.01, fused_shape=(1, 8, 16, 3), lane_cases=SMALL[:1],
-                         grid=1)
-    assert kb["launches"] == {"fused_stack": 0, "fused_stack_packed": 0, "lane_packing_mm": 0,
-                              "palette_dither": 0}
-    assert [r["name"] for r in kb["fused"]] == ["eager bf16", "cuda fused", "cuda packed-2"]
-    assert [r["variant"] for r in kb["lane"]] == ["baseline"]
-
 
 def test_chip_smoke_names_its_sources():
     repo = os.path.dirname(os.path.abspath(cs.__file__))

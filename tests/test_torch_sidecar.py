@@ -2,12 +2,15 @@
 
 The server serves 3 frames at depth 0 and depth 2 over a unix socket, in a
 thread, to the port's client; every socket has a timeout and every join a
-bound, so a fault fails the test instead of hanging it.
+bound, so a fault fails the test instead of hanging it. With a trivial
+enhance, its latency record is read while a client is connected and after a
+client drops mid-stream.
 """
 import os
 import socket
 import tempfile
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -126,3 +129,65 @@ def test_frame_stream_returns_frames_in_order(enhance, depth):
         np.testing.assert_array_equal(o, enhance(FRAMES[i:i + 1]).numpy())
     with pytest.raises(ValueError):
         FrameStream(enhance, depth=0, device="cpu")
+
+
+def _serve_in_thread(srv):
+    srv.bind()
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return th
+
+
+def _stop(srv, th):
+    client = sidecar.SidecarClient(srv.socket_path, timeout=10.0)
+    client.shutdown_server()
+    client.close()
+    th.join(timeout=10)
+    assert not th.is_alive()
+
+
+@pytest.mark.parametrize("case", ["connected", "dropped"])
+def test_latency_record_is_flushed_during_and_after_a_session(monkeypatch, case):
+    """Every LAT_FLUSH frames a session folds its latencies into the record,
+    so the stats show them while its client is connected; a session that
+    ends in a socket error still counts the frames it served."""
+    monkeypatch.setattr(sidecar.SidecarServer, "LAT_FLUSH", 8)
+    gate, calls = threading.Event(), []
+
+    def trivial(frames):  # alpha forced, as the enhance does
+        calls.append(1)
+        if case == "dropped" and len(calls) == 5:
+            assert gate.wait(10.0)  # answer only after the client has gone
+        return frames.clone().index_fill_(-1, torch.tensor([3]), 255)
+
+    frames = np.random.default_rng(1).integers(0, 256, (20, 4, 6, 4), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        srv = sidecar.SidecarServer(trivial, os.path.join(tmp, "s.sock"), height=4, width=6,
+                                    depth=0, verbose=0, device="cpu", client_timeout=30.0)
+        th = _serve_in_thread(srv)
+        client = sidecar.SidecarClient(srv.socket_path, timeout=10.0)
+        if case == "connected":
+            for f in frames:
+                assert client.submit(f)[..., 3].min() == 255
+            stats = srv.latency_stats()
+            assert stats["frames"] == 16 and stats["percentile_window_frames"] == 16
+            client.close()
+        else:
+            for f in frames[:4]:
+                client.submit(f)
+            assert srv.latency_stats() is None  # 4 frames: no flush yet
+            # the fifth frame goes out, then the client is gone before its
+            # answer: the server's send fails and the session ends in an error
+            client.sock.sendall(bytes([sidecar.OP_FRAME]) + frames[4].tobytes())
+            client.close()
+            gate.set()
+        deadline = time.monotonic() + 10.0
+        want = 20 if case == "connected" else 5
+        while (srv.latency_stats() or {}).get("frames") != want:
+            assert time.monotonic() < deadline, srv.latency_stats()
+            time.sleep(0.01)
+        _stop(srv, th)
+    stats = srv.latency_stats()
+    assert stats["frames"] == want and 0 < stats["min_ms"] <= stats["max_ms"]
+    assert set(stats) == {"frames", "percentile_window_frames", "depth", "p50_ms", "p90_ms",
+                          "p99_ms", "min_ms", "max_ms", "mean_ms", "definition"}
