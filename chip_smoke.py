@@ -174,11 +174,31 @@ Phases, each printing one JSON line with its wall time:
               to this process's enhance of the same frame); bench_families
               and bench_conv6_latency (0.5 s a family or variant; K1 once a
               pix_shuffle frame); eval_headtohead on the generator's batched
-              tree, 8 samples (the orbax checkpoint listed as skipped);
+              tree, 8 samples (4 rows: the plateau-50 row from the JAX
+              script's orbax checkpoint second, nothing skipped);
               precompile at 576x752 (the warm first frame faster than the
               cold one, which builds the kernels); build_artifacts for
-              pix_shuffle and conv3 (their ONNX bytes the committed ones)
-20. train_drivers  slice 12's training and NAS drivers (scripts/), each
+              pix_shuffle, conv3 and pix_shuffle_trained (their ONNX bytes
+              the committed ones; pix_shuffle_trained's weights from the
+              committed orbax checkpoint checkpoint_best_epoch73)
+20. orbax     slice 14: the JAX package's TPU-trained orbax checkpoints read
+              by the port (train/orbax_reader.py: OCDBT and zstd in Python
+              and numpy, no jax, tensorstore or zstd codec), each read's
+              seconds on the host, params only and the whole tree:
+              model_pix_shuffle_trained/checkpoint_best_epoch73 (its 24
+              leaves bit-equal to the port's import of
+              pix_shuffle_trained.onnx; a seeded 576x752 frame through K1
+              with them byte-equal to enhance_from_onnx of that graph, K1
+              once), training_parity/plateau_full and
+              model_pix_shuffle_heavy/checkpoint_best_epoch60 (its eager
+              bf16 forward on the frame finite, no K1); then the trainer
+              CLI resumed on the datagen phase's tree for one epoch of 4
+              samples from a copy of training_parity/ablation_novgg (its
+              CSV, the path column rewritten to the copy, and the epoch-12
+              checkpoint its last row names): the new row at epoch 13, the
+              first step at the CSV's learning rate from the checkpoint's
+              weights, bit for bit, K1 once a validation batch
+21. train_drivers  slice 12's training and NAS drivers (scripts/), each
               through its main on the card on the datagen phase's tree,
               outputs in temporary directories, K1's counter from 0 for
               each: the JAX package's random VGG basis drawn cold
@@ -199,11 +219,11 @@ Phases, each printing one JSON line with its wall time:
               hit); convert_vgg16_weights (exit 1 naming torchvision); the
               retention probe at 8 MB x 50 (GB retained per GB sent). The
               trainers' pid file holds this process's pid and is removed
-21. kernel_bench  the two kernel benches (slice 3's main path), about half
+22. kernel_bench  the two kernel benches (slice 3's main path), about half
               a second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-22. timing    K1's and K2's device time a call (median, min and max of 3
+23. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -222,7 +242,7 @@ Phases, each printing one JSON line with its wall time:
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-23. kernels   every kernel launched, held against its plain version
+24. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -342,6 +362,17 @@ RECIPE_CROPS = 16
 RECIPE_TRAIN_CUT = ("--epochs", "1", "--train_samples", "32", "--val_samples", "8")
 RECIPE_REPLAY_WARMUP = 16
 RECIPE_REPLAY_LOOPS = 400
+# slice 14: the JAX package's TPU-trained orbax checkpoints the orbax phase
+# reads (the trained lightweight graph's checkpoint, the plateau-50 run, the
+# heavy run at epoch 60), the run it resumes (its CSV's last row names its
+# epoch-12 checkpoint) and the resume's samples
+ART = os.path.join(REPO, "artifacts")
+ORBAX_TRAINED = os.path.join(ART, "model_pix_shuffle_trained", "checkpoint_best_epoch73")
+ORBAX_TRAINED_ONNX = os.path.join(ART, "model_pix_shuffle_trained", "pix_shuffle_trained.onnx")
+ORBAX_PLATEAU = os.path.join(ART, "training_parity", "plateau_full", "checkpoint_best_pix_shuffle")
+ORBAX_HEAVY = os.path.join(ART, "model_pix_shuffle_heavy", "checkpoint_best_epoch60")
+ORBAX_RESUME = os.path.join(ART, "training_parity", "ablation_novgg")
+ORBAX_RESUME_SAMPLES, ORBAX_RESUME_VAL = 4, 2
 
 # a child that imports only the port: load the artifact, enhance the frames,
 # save them and K1's launches
@@ -2243,7 +2274,8 @@ def drivers(dev, scenes: int = DRIVER_SCENES, scene_wh=(1504, 1152), crops: int 
         rc, out, s = run_driver("precompile", ["--shapes", *shapes, *on])
         rec["precompile"] = dict(rc=rc, seconds=s, report=out)
         rc, out, s = run_driver("build_artifacts", [
-            "--out", os.path.join(tmp, "artifacts"), "--models", "pix_shuffle", "conv3", *on])
+            "--out", os.path.join(tmp, "artifacts"), "--models", "pix_shuffle", "conv3",
+            "pix_shuffle_trained", *no_ckpt, *on])
         rec["build_artifacts"] = dict(rc=rc, seconds=s, report=out)
     return rec
 
@@ -2306,9 +2338,11 @@ def check_drivers(rec: dict, dev, scenes: int = DRIVER_SCENES, crops: int = DRIV
           and all(v["fps"] > 0 for v in rec["bench_conv6_latency"]["report"]["variants"].values()),
           f"bench_conv6_latency: {rec['bench_conv6_latency']['report']}")
     e = rec["eval_headtohead"]["report"]
-    check(len(e["rows"]) == 3 and all(math.isfinite(r["srgb_psnr_db"]) and r["batches"] == 1
+    # the plateau-50 row from the JAX script's orbax checkpoint, second
+    check(len(e["rows"]) == 4 and all(math.isfinite(r["srgb_psnr_db"]) and r["batches"] == 1
                                       for r in e["rows"])
-          and any("orbax" in s["reason"] for s in e["skipped"]), f"eval_headtohead: {e}")
+          and e["rows"][1]["label"] == "trained here: pix_shuffle plateau-50"
+          and not e["skipped"], f"eval_headtohead: {e}")
     for row in rec["precompile"]["report"]["shapes"]:
         if on_card:
             check(row["cold"]["built"] and not row["warm"]["built"]
@@ -2317,6 +2351,182 @@ def check_drivers(rec: dict, dev, scenes: int = DRIVER_SCENES, crops: int = DRIV
                   f"precompile: {row}")
     check(all(rec["build_artifacts"]["report"]["onnx_equal_to_committed"].values()),
           f"build_artifacts' ONNX differs: {rec['build_artifacts']['report']}")
+    trained = rec["build_artifacts"]["report"]["weights"]["pix_shuffle_trained"]
+    check(trained == f"committed checkpoint {ORBAX_TRAINED}",
+          f"build_artifacts took pix_shuffle_trained's weights from {trained}")
+
+
+def orbax_phase(dev, tree: str, crop=(CROP_W, CROP_H), frame_hw=(576, 752),
+                samples: int = ORBAX_RESUME_SAMPLES, val_samples: int = ORBAX_RESUME_VAL) -> dict:
+    """Slice 14: the JAX package's TPU-trained orbax checkpoints read by the
+    port (``train/orbax_reader.py``, no jax, tensorstore or zstd codec), each
+    read timed on the host, params only and the whole tree (``opt_state``
+    too). The trained lightweight checkpoint's 24 leaves against the port's
+    import of its graph, bit for bit, and one seeded frame through K1 with
+    them against ``enhance_from_onnx`` of that graph, byte for byte; the
+    heavy run's eager bf16 forward on the frame; then the trainer CLI
+    resumed for one epoch of ``samples`` samples on ``tree`` from a copy of
+    the ``ablation_novgg`` run (its CSV, the path column pointing at the
+    copy, and the epoch-12 checkpoint its last row names): the first train
+    step's parameters and learning rate, and the CSV's new row."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.export.enhance import (
+        enhance_from_onnx, make_enhance_fn)
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_import import import_pix_shuffle
+    from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
+    from fs_uae_image_enhancer_project_tpu_torch.models import get_model
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.parallel.train_step import leaves
+    from fs_uae_image_enhancer_project_tpu_torch.train import cli
+    from fs_uae_image_enhancer_project_tpu_torch.train import trainer as tr
+    from fs_uae_image_enhancer_project_tpu_torch.train.orbax_reader import read_orbax
+
+    def flat(tree, pre=()):
+        """(dotted path, leaf) of a nested dict or list, None leaves left out."""
+        if isinstance(tree, (dict, list)):
+            keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
+            return [x for k in keys for x in flat(tree[k], pre + (str(k),))]
+        return [] if tree is None else [(".".join(pre), tree)]
+
+    rec: dict = {"reads": {}}
+    read = {}
+    for name, path in (("trained_epoch73", ORBAX_TRAINED), ("plateau_50", ORBAX_PLATEAU),
+                       ("heavy_epoch60", ORBAX_HEAVY)):
+        t0 = time.perf_counter()
+        read[name] = read_orbax(path)
+        params_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole = read_orbax(path, subtrees=("step", "params", "buffers", "opt_state"))
+        whole_s = time.perf_counter() - t0
+        rec["reads"][name] = dict(
+            path=os.path.relpath(path, REPO), params_s=params_s, whole_s=whole_s,
+            step=int(read[name]["step"]), param_leaves=len(flat(read[name]["params"])),
+            buffers=len(flat(read[name]["buffers"])),
+            opt_state_leaves=len(flat(whole["opt_state"])))
+        print(f"orbax read {name}: {params_s:.3f} s params only, {whole_s:.3f} s the whole "
+              "tree", flush=True)
+
+    # the trained checkpoint: its leaves and its K1 frame against its graph's
+    got = flat(read["trained_epoch73"]["params"])
+    want = flat(import_pix_shuffle(ORBAX_TRAINED_ONNX).params)
+    rec["trained_leaves"] = len(got)
+    rec["trained_leaves_equal_to_graph"] = (
+        [k for k, _ in got] == [k for k, _ in want]
+        and all(a.dtype == np.float32 and np.array_equal(a, b)
+                for (_, a), (_, b) in zip(got, want)))
+    frame = np.random.default_rng(14).integers(0, 256, (1, *frame_hw, 4), dtype=np.uint8)
+    m = get_model("pix_shuffle")
+    enhance_ck = make_enhance_fn(m.apply, params_from_jax(read["trained_epoch73"]["params"],
+                                                          device=dev), crop_left=16, device=dev)
+    before = fs.fused_stack.launches
+    out_ck = enhance_ck(frame).cpu().numpy()
+    rec["trained_k1_launches"] = fs.fused_stack.launches - before
+    out_graph = enhance_from_onnx(ORBAX_TRAINED_ONNX, device=dev)(frame).cpu().numpy()
+    rec["trained_frame_equal_to_graph"] = bool(np.array_equal(out_ck, out_graph))
+    rec["trained_frame_shape"] = list(out_ck.shape)
+
+    # the heavy run: eager bf16 (K1 takes the lightweight stack only)
+    hm = get_model("pix_shuffle", "heavyweight")
+    hp = params_from_jax(read["heavy_epoch60"]["params"], device=dev)
+    x = (torch.from_numpy(frame[..., :3]).to(dev).float() / 255.0) ** 2.2
+    before = fs.fused_stack.launches
+    with torch.no_grad():
+        y = hm.apply(hp, x.to(torch.bfloat16)).float()
+    rec["heavy_k1_launches"] = fs.fused_stack.launches - before
+    rec["heavy_forward"] = dict(shape=list(y.shape), dtype="bfloat16",
+                                finite=bool(torch.isfinite(y).all()),
+                                mean=float(y.mean()), std=float(y.std()))
+
+    # the resume: the JAX run's CSV and checkpoint, copied
+    w, h = crop
+    with open(os.path.join(ORBAX_RESUME, "training_stats_pix_shuffle.csv")) as f:
+        rows = list(csv.reader(f))
+    last = os.path.basename(rows[-1][5])
+    first_step: dict = {}
+    real = tr.make_train_step
+
+    def capturing(*a, **kw):
+        step = real(*a, **kw)
+
+        def first(state, lr_b, hr_b):
+            if not first_step:
+                first_step["params"] = [t.detach().cpu().clone() for t in leaves(state.params)]
+                first_step["lr"] = state.optimizer.param_groups[0]["lr"]
+            return step(state, lr_b, hr_b)
+        return first
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ablation_novgg")
+        shutil.copytree(os.path.join(ORBAX_RESUME, last), os.path.join(ck, last))
+        with open(os.path.join(ck, "training_stats_pix_shuffle.csv"), "w", newline="") as f:
+            csv.writer(f).writerows(
+                [rows[0]] + [r[:5] + [os.path.join(ck, os.path.basename(r[5]))]
+                             for r in rows[1:]])
+        start_epoch = int(rows[-1][0])
+        before = fs.fused_stack.launches
+        tr.make_train_step = capturing
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(["--model_type", "pix_shuffle", "--checkpoint_dir", ck,
+                           "--epochs", str(start_epoch + 1), "--generator_train_dir", tree,
+                           "--crop_size", str(w), str(h), "--batch_size", "1",
+                           "--accumulation_steps", "2", "--train_samples", str(samples),
+                           "--val_samples", str(val_samples), "--verbose", "0",
+                           "--device", str(dev)])
+            _sync(dev)
+            resume_s = time.perf_counter() - t0
+        finally:
+            tr.make_train_step = real
+        rec["resume_k1_launches"] = fs.fused_stack.launches - before
+        with open(os.path.join(ck, "training_stats_pix_shuffle.csv")) as f:
+            after = list(csv.reader(f))
+        saved = read_orbax(os.path.join(ORBAX_RESUME, last))
+        want = [torch.from_numpy(np.asarray(a, np.float32)) for _, a in flat(saved["params"])]
+        new_ck = after[-1][5] if len(after) > len(rows) else None
+        rec["resume"] = dict(
+            rc=rc, seconds=resume_s, checkpoint=last, val_samples=val_samples,
+            csv_rows_before=len(rows) - 1,
+            csv_rows_after=len(after) - 1, csv_lr=float(rows[-1][4]),
+            first_step_lr=first_step.get("lr"), new_row=after[-1] if new_ck else None,
+            new_checkpoint_written=bool(new_ck and os.path.isfile(
+                os.path.join(new_ck, tr.CHECKPOINT_FILE))),
+            first_step_params_equal_to_checkpoint=bool(first_step) and len(
+                first_step["params"]) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(first_step["params"], want)))
+    return rec
+
+
+def check_orbax(rec: dict, dev) -> None:
+    """The orbax phase's checks; K1 launches only on a card."""
+    on_card = dev.type == "cuda"
+    for name, r in rec["reads"].items():
+        check(r["param_leaves"] > 0 and r["buffers"] == 0 and r["opt_state_leaves"] > 0
+              and math.isfinite(r["params_s"]) and math.isfinite(r["whole_s"]),
+              f"orbax read {name}: {r}")
+    check(rec["trained_leaves"] == 24 and rec["trained_leaves_equal_to_graph"],
+          "the trained checkpoint's leaves differ from its graph's")
+    check(rec["trained_frame_equal_to_graph"],
+          "the trained checkpoint's frame differs from enhance_from_onnx of its graph")
+    check(rec["trained_k1_launches"] == (1 if on_card else 0),
+          f"K1 launched {rec['trained_k1_launches']} times for the trained checkpoint's frame")
+    check(rec["heavy_forward"]["finite"] and rec["heavy_k1_launches"] == 0,
+          f"the heavy checkpoint's forward: {rec['heavy_forward']}")
+    r = rec["resume"]
+    row = r["new_row"]
+    check(r["rc"] == 0 and row is not None and r["csv_rows_after"] == r["csv_rows_before"] + 1,
+          f"the resume: {r}")
+    check(int(row[0]) == 13 and r["first_step_lr"] == r["csv_lr"]
+          and math.isclose(float(row[4]), r["csv_lr"] * 0.955, rel_tol=1e-9),
+          f"the resume did not go on at epoch 13 from the CSV's learning rate: {r}")
+    check(r["first_step_params_equal_to_checkpoint"] and r["new_checkpoint_written"],
+          f"the resume's first step did not start from the checkpoint's weights: {r}")
+    want = r["val_samples"] if on_card else 0  # one a validation batch of 1
+    check(rec["resume_k1_launches"] == want,
+          f"the resume's validation launched K1 {rec['resume_k1_launches']} times, not {want}")
 
 
 def timed_steps(module, name: str, dev, record: list):
@@ -3121,7 +3331,19 @@ def main(argv=None) -> int:
     emit("drivers", t0, **drv, launches=drv_launches, nvidia_smi=smi)
     check_drivers(drv, dev)
 
-    # 20. train_drivers: slice 12's training and NAS drivers on the datagen
+    # 20. orbax: slice 14, the JAX package's TPU-trained checkpoints read,
+    # served through K1 and resumed on the datagen phase's tree, counters
+    # from 0
+    _phase = "orbax"
+    t0 = time.perf_counter()
+    for counter in _counters().values():
+        counter.launches = 0
+    orb = orbax_phase(dev, tree)
+    orb["launches"] = {k: c.launches for k, c in _counters().items()}
+    emit("orbax", t0, **orb, nvidia_smi=smi)
+    check_orbax(orb, dev)
+
+    # 21. train_drivers: slice 12's training and NAS drivers on the datagen
     # phase's tree, K1's counter from 0 for each
     _phase = "train_drivers"
     t0 = time.perf_counter()
@@ -3130,7 +3352,7 @@ def main(argv=None) -> int:
     emit("train_drivers", t0, **tdrv, nvidia_smi=smi)
     check_train_drivers(tdrv, dev)
 
-    # 21. kernel_bench: slice 3's main path, every counter from 0
+    # 22. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -3140,7 +3362,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 22. timing at the main paths' shapes
+    # 23. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -3214,7 +3436,7 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 23. kernels
+    # 24. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
@@ -3226,6 +3448,7 @@ def main(argv=None) -> int:
         export_launches=exp["pix_shuffle"]["k1_launches"],
         export_child_launches=exp["pix_shuffle"]["child"]["k1_launches"],
         int8_study_launches=i8["k1_launches"], drivers_launches=drv_launches["fused_stack"],
+        orbax_launches=orb["launches"]["fused_stack"],
         recipes_launches=rcp["launches"]["fused_stack"],
         train_drivers_launches={k: r["k1_launches"] for k, r in tdrv.items()
                                 if isinstance(r, dict) and "k1_launches" in r},

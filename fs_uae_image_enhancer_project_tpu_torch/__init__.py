@@ -53,7 +53,12 @@ What is ported, by slice:
    that train and search (``scripts``: ``train_psh_long``,
    ``train_psh_heavy_long``, ``training_parity_study``,
    ``plot_training_parity``, ``train_nas_winner``, ``train_vgg_features``,
-   ``nas_demo_r2``, ``convert_vgg16_weights``, ``probe_transfer_retention``).
+   ``nas_demo_r2``, ``convert_vgg16_weights``, ``probe_transfer_retention``);
+13. the JAX package's orbax checkpoints, read without jax, orbax,
+   tensorstore or a zstd codec (``utils.zstd``, ``utils.ocdbt``,
+   ``train.orbax_reader``): the trainer's ``load_params``,
+   ``load_checkpoint`` and CSV resume take them, and so the export CLI and
+   the drivers.
 
 The port now does all that the JAX package does. Two JAX modules keep no
 counterpart: ``utils/compile_cache.py`` (the hash-keyed nvcc cache of

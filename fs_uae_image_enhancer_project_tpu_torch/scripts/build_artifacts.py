@@ -22,7 +22,11 @@ Port of the repo's ``scripts/build_artifacts.py``. For each model it writes
 The weights are the committed graph's (the shipped families' graphs are
 re-exports of the reference's); for the trained families a trained
 checkpoint of the port under ``--work_dir`` takes their place where there is
-one (its ONNX is then not held to the committed one). The sample frames are
+one (its ONNX is then not held to the committed one). pix_shuffle_trained
+comes first from the committed orbax checkpoint of the highest epoch,
+``artifacts/model_pix_shuffle_trained/checkpoint_best_epoch<N>``, as the JAX
+script takes it (the port reads it with ``train.orbax_reader``), then from
+``--work_dir``, then from its graph. The sample frames are
 the reference's eight (``--samples``, its ``model/samples`` directory) where
 given, else the eight committed 752x576 frames
 ``artifacts/model_conv3_heavy/predicted/`` (the frames
@@ -34,9 +38,12 @@ predicted frames. The summary is printed as the last line.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
+import re
 import sys
+from typing import Optional
 
 from .common import ARTIFACTS, CURRENT_CORPUS_TAG, WORK_DIR, psnr_u8, trained_checkpoint
 
@@ -48,6 +55,18 @@ COMMITTED_FRAMES = os.path.join(ARTIFACTS, "model_conv3_heavy", "predicted")
 
 def committed(name: str) -> str:
     return os.path.join(ARTIFACTS, f"model_{name}", f"{name}.onnx")
+
+
+def committed_checkpoint() -> Optional[str]:
+    """The committed TPU-trained pix_shuffle checkpoint of the highest epoch
+    number (not the last name: epoch100 sorts before epoch73), or None."""
+    def epoch(path: str) -> int:
+        m = re.search(r"epoch(\d+)$", path)
+        return int(m.group(1)) if m else -1
+
+    cks = sorted(glob.glob(os.path.join(ARTIFACTS, "model_pix_shuffle_trained",
+                                        "checkpoint_best_epoch*")), key=epoch)
+    return cks[-1] if cks else None
 
 
 def export_model(name: str, out_dir: str, device, work_dir: str = WORK_DIR) -> dict:
@@ -85,12 +104,15 @@ def export_model(name: str, out_dir: str, device, work_dir: str = WORK_DIR) -> d
     else:
         m = get_model("pix_shuffle", "heavyweight") if name == "pix_shuffle_heavy" else (
             get_model("pix_shuffle") if name == "pix_shuffle_trained" else get_model(name))
-        ckpt = trained_checkpoint("pix_shuffle_long" if name == "pix_shuffle_trained" else name,
-                                  work_dir)
+        ckpt = committed_checkpoint() if name == "pix_shuffle_trained" else None
+        weights = f"committed checkpoint {ckpt}"
+        if ckpt is None:
+            ckpt = trained_checkpoint(
+                "pix_shuffle_long" if name == "pix_shuffle_trained" else name, work_dir)
+            weights = f"trained checkpoint {ckpt}"
         if ckpt:
             params = params_to_numpy(load_params(
                 ckpt, m.init(torch.Generator().manual_seed(0), device="cpu")))
-            weights = f"trained checkpoint {ckpt}"
         else:
             params = _match_structure(m, import_any(src).params)
             weights = f"committed graph {src}"

@@ -13,9 +13,9 @@ MS-SSIM, :func:`common.vggfree_eval`), one row a set of weights:
 
 1. the shipped graph's weights (``--ref_onnx``, default
    ``artifacts/model_pix_shuffle/pix_shuffle.onnx``);
-2. the JAX script's 50-epoch plateau checkpoint is an orbax checkpoint
-   (``artifacts/training_parity/plateau_full/``), which cannot be read
-   without jax: the report lists it under ``skipped`` with that reason;
+2. the JAX script's 50-epoch plateau checkpoint, the orbax checkpoint
+   ``artifacts/training_parity/plateau_full/checkpoint_best_pix_shuffle``
+   (read by ``train.orbax_reader`` through ``load_params``);
 3. the port's long fresh run (``common.TRAINED_CKPTS["pix_shuffle_long"]``
    under ``--work_dir``) where it exists;
 4. the trained pix_shuffle graph of the repo (``--trained_onnx``, default
@@ -135,8 +135,8 @@ def run(data: str, crop=(376, 288), num_samples: int = 1024, batch_size: int = 8
     rows.append(run_row(base, graph_params(ref_onnx, base, dev),
                         f"shipped pix_shuffle graph {os.path.relpath(ref_onnx)}",
                         CAVEAT_SHIPPED))
-    skipped.append({"label": "trained here: pix_shuffle plateau-50", "path": PLATEAU_CKPT,
-                    "reason": "an orbax checkpoint, which cannot be read without jax"})
+    rows.append(run_row(base, load_params(PLATEAU_CKPT, fresh(base)),
+                        "trained here: pix_shuffle plateau-50", CAVEAT_R2_TRAINED))
     ck = trained_checkpoint("pix_shuffle_long", work_dir)
     if ck:
         rows.append(run_row(base, load_params(ck, fresh(base)),

@@ -21,8 +21,12 @@ and per-epoch metrics (JSONL).
 - Checkpoints are ``torch.save`` files (step, parameters, batchnorm buffers,
   optimizer and scheduler state), one a directory, at the JAX package's path
   names. The CSV stays the resume source for epochs, patience and the
-  learning rate. The port has no reader for the JAX package's orbax
-  checkpoints; trained JAX weights reach the port through its ONNX files.
+  learning rate.
+- The JAX package's orbax checkpoints are read too (``orbax_reader``): step,
+  parameters and buffers, never optax's state. So a run the JAX trainer
+  began resumes here as it would there, with its weights and buffers, a
+  fresh optimizer and the CSV's learning rate, and ``load_params`` serves
+  export and evaluation.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 
 from .. import resolve_device
 from ..data.dataset import SRDataset, batch_transform, device_prefetch
+from ..interop import params_from_jax
 from ..losses.perceptual import build_criterion
 from ..models import ModelDef, train_apply
 from ..ops.cuda import fused_stack as k1
@@ -52,6 +57,7 @@ from ..parallel.train_step import (
     make_train_step,
     merge_bn_buffers,
 )
+from .orbax_reader import is_orbax_checkpoint, read_orbax
 
 CSV_HEADER = [
     "Epoch", "Train Loss", "Validation Loss", "EpochsNoImprove",
@@ -121,18 +127,19 @@ def save_checkpoint(path: str, state: TrainState) -> None:
 
 
 def _read(path: str) -> dict:
+    """The checkpoint in directory ``path`` as CPU tensors: the port's
+    ``torch.save`` file (step, params, buffers, optimizer, scheduler), or an
+    orbax checkpoint of the JAX package (step, params, buffers)."""
     path = os.path.abspath(path)
     f = os.path.join(path, CHECKPOINT_FILE)
-    if not os.path.isfile(f):
-        if os.path.isdir(path) and any(
-                n.startswith(("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt"))
-                for n in os.listdir(path)):
-            raise ValueError(
-                f"{path} is an orbax checkpoint of the JAX package; the port has no "
-                "orbax reader. Export the weights to ONNX with the JAX package and "
-                "import them with the port's export.onnx_import.")
-        raise FileNotFoundError(f"no port checkpoint at {f}")
-    return torch.load(f, map_location="cpu", weights_only=True)
+    if os.path.isfile(f):
+        return torch.load(f, map_location="cpu", weights_only=True)
+    if is_orbax_checkpoint(path):
+        saved = read_orbax(path)
+        return {"step": int(saved["step"]),
+                "params": params_from_jax(saved["params"], device="cpu"),
+                "buffers": params_from_jax(saved["buffers"], device="cpu")}
+    raise FileNotFoundError(f"no port checkpoint at {f} and no orbax checkpoint at {path}")
 
 
 def _copy_into(dst, src):
@@ -145,8 +152,10 @@ def _copy_into(dst, src):
 
 
 def load_params(path: str, params_template):
-    """The parameters of a checkpoint, merged with its batchnorm buffers, on
-    the template's devices and dtypes (for export and inference)."""
+    """The parameters of a checkpoint (the port's, or the JAX package's
+    orbax one), merged with its batchnorm buffers, on the template's
+    devices and dtypes (for export and inference), as the JAX package's
+    ``load_params`` returns them."""
     saved = _read(path)
     params = merge_bn_buffers(saved["params"], saved["buffers"])
 
@@ -159,13 +168,17 @@ def load_params(path: str, params_template):
 
 
 def load_checkpoint(path: str, template: TrainState) -> TrainState:
-    """Restore a checkpoint into ``template`` (parameters and buffers copied
-    in place, optimizer and scheduler state loaded)."""
+    """Restore a checkpoint into ``template``: parameters and buffers are
+    copied in place and the step is the checkpoint's. A port checkpoint
+    also loads the optimizer and scheduler state; an orbax checkpoint of
+    the JAX package leaves ``template``'s optimizer as it is (fresh, for a
+    template from ``init_train_state``), since optax's state is not read."""
     saved = _read(path)
     _copy_into(template.params, saved["params"])
     _copy_into(template.buffers, saved["buffers"])
-    template.optimizer.load_state_dict(saved["optimizer"])
-    template.scheduler.load_state_dict(saved["scheduler"])
+    if "optimizer" in saved:
+        template.optimizer.load_state_dict(saved["optimizer"])
+        template.scheduler.load_state_dict(saved["scheduler"])
     return template._replace(step=saved["step"])
 
 

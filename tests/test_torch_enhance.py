@@ -206,7 +206,10 @@ NEW_MODULES = ("utils.profiler", "utils.threefry", "ops.cuda.fused_stack_packed"
                "scripts.train_psh_heavy_long", "scripts.training_parity_study",
                "scripts.plot_training_parity", "scripts.train_nas_winner",
                "scripts.train_vgg_features", "scripts.nas_demo_r2",
-               "scripts.convert_vgg16_weights", "scripts.probe_transfer_retention")
+               "scripts.convert_vgg16_weights", "scripts.probe_transfer_retention",
+               "utils.zstd", "utils.ocdbt", "train.orbax_reader")
+# what the card machine lacks: the port reads orbax checkpoints without them
+NO_CODECS = ("tensorstore", "orbax", "zstandard")
 
 
 def test_port_chip_smoke_and_card_tests_import_no_jax():
@@ -222,6 +225,7 @@ def test_port_chip_smoke_and_card_tests_import_no_jax():
             top = mod.split(".")[0]
             assert top != "jax" and top != "jaxlib", (path, mod)
             assert top != "fs_uae_image_enhancer_project_tpu", (path, mod)
+            assert top not in NO_CODECS, (path, mod)
             if path.startswith(PORT):  # nor the root harness or the root scripts/
                 assert top not in ("chip_smoke", "scripts", "bench"), (path, mod)
     code = (
@@ -230,7 +234,7 @@ def test_port_chip_smoke_and_card_tests_import_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'fs_uae_image_enhancer_project_tpu')]\n"
+        f"('jax', 'jaxlib', 'fs_uae_image_enhancer_project_tpu', *{NO_CODECS!r})]\n"
         "assert not bad, bad\n"
         f"need = {NEW_MODULES!r}\n"
         "assert all(p.__name__ + '.' + n in sys.modules for n in need)\n"

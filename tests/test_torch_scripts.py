@@ -11,7 +11,8 @@ small sizes:
 - ``build_artifacts`` re-exports the committed pix_shuffle graph byte for
   byte;
 - ``eval_headtohead.main`` on a small generated-style corpus: the report's
-  fields and invariants, and each row's PSNR within 1e-3 dB of the root
+  fields and invariants (the plateau-50 row from the JAX script's orbax
+  checkpoint second, nothing skipped), and each row's PSNR within 1e-3 dB of the root
   script's ``vggfree_eval`` on the same pairs and weights with the forward
   in fp32 (0.01 dB in bf16);
 - ``bench_sidecar_multiclient`` with 2 clients for 1 s: every client
@@ -48,6 +49,7 @@ from fs_uae_image_enhancer_project_tpu.export.onnx_import import (
     import_pix_shuffle as jax_import_pix_shuffle)
 from fs_uae_image_enhancer_project_tpu.models import get_model as jax_model
 from fs_uae_image_enhancer_project_tpu.ops import activations as jax_act
+from fs_uae_image_enhancer_project_tpu.train.trainer import load_params as jax_load_params
 from fs_uae_image_enhancer_project_tpu_torch.export.enhance import enhance_from_onnx
 from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
 from fs_uae_image_enhancer_project_tpu_torch.models import get_model
@@ -209,11 +211,14 @@ def test_eval_headtohead_rows_are_the_root_protocols(forward, tmp_path, capsys, 
                 "skipped"):
         assert key in report, key
     assert report["held_out_pairs"] == 2 and report["num_samples"] == 4  # 10% of 20 pairs
-    assert [s["label"] for s in report["skipped"]] == ["trained here: pix_shuffle plateau-50"]
-    assert "jax" in report["skipped"][0]["reason"]
+    # the JAX script's plateau-50 row, read from its orbax checkpoint, in
+    # its place, with its label and caveat; nothing is skipped
+    assert report["skipped"] == []
     labels = [r["label"] for r in report["rows"]]
-    assert len(labels) == 3 and labels[0].startswith("shipped")
-    assert "pix_shuffle_trained" in labels[1] and "pix_shuffle_heavy" in labels[2]
+    assert len(labels) == 4 and labels[0].startswith("shipped")
+    assert labels[1] == "trained here: pix_shuffle plateau-50"
+    assert report["rows"][1]["caveat"] == eval_headtohead.CAVEAT_R2_TRAINED
+    assert "pix_shuffle_trained" in labels[2] and "pix_shuffle_heavy" in labels[3]
     for r in report["rows"]:
         assert r["batches"] == 2 and r["ms_ssim_srgb"] is None and r["caveat"]
         assert np.isfinite(r["pixel_loss_vggfree"]) and np.isfinite(r["srgb_psnr_db"])
@@ -224,6 +229,8 @@ def test_eval_headtohead_rows_are_the_root_protocols(forward, tmp_path, capsys, 
     weights = [
         (jax_model("pix_shuffle"), jax_import_pix_shuffle(
             os.path.join(art, "model_pix_shuffle", "pix_shuffle.onnx")).params),
+        (jax_model("pix_shuffle"), jax_load_params(
+            eval_headtohead.PLATEAU_CKPT, jax_model("pix_shuffle").init(jax.random.key(0)))),
         (jax_model("pix_shuffle"), jax_import_pix_shuffle(
             os.path.join(art, "model_pix_shuffle_trained", "pix_shuffle_trained.onnx")).params),
         (jax_model("pix_shuffle", "heavyweight"), jax_import_any(

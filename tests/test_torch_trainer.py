@@ -114,17 +114,32 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_orbax_checkpoint_raises(tmp_path):
-    """A directory of the JAX package's orbax files is refused by name."""
+    """A directory of the JAX package's orbax files is read (bit-equal
+    parameters); one whose manifest is corrupted raises, by name, as does a
+    directory with no checkpoint."""
+    import shutil
+
     from fs_uae_image_enhancer_project_tpu.parallel.train_step import (
         init_train_state as jax_state,
         make_optimizer as jax_optimizer,
     )
+    from fs_uae_image_enhancer_project_tpu_torch.interop import params_to_numpy
 
     path = str(tmp_path / "checkpoint_best_pix_shuffle")
-    JT.save_checkpoint(path, jax_state(jax_model("pix_shuffle").init(jax.random.key(0)),
-                                       jax_optimizer()))
-    with pytest.raises(ValueError, match="orbax"):
-        T.load_params(path, get_model("pix_shuffle").init(device="cpu"))
+    jparams = jax_model("pix_shuffle").init(jax.random.key(0))
+    JT.save_checkpoint(path, jax_state(jparams, jax_optimizer()))
+    got = params_to_numpy(T.load_params(path, get_model("pix_shuffle").init(device="cpu")))
+    for (kp, want), (_, have) in zip(jax.tree_util.tree_flatten_with_path(jparams)[0],
+                                     jax.tree_util.tree_flatten_with_path(got)[0]):
+        assert np.array_equal(np.asarray(want), have), kp
+    bad = str(tmp_path / "corrupted")
+    shutil.copytree(path, bad)
+    manifest = os.path.join(bad, "manifest.ocdbt")
+    raw = bytearray(open(manifest, "rb").read())
+    raw[20] ^= 0x40
+    open(manifest, "wb").write(bytes(raw))
+    with pytest.raises(ValueError, match="CRC-32C"):
+        T.load_params(bad, get_model("pix_shuffle").init(device="cpu"))
     with pytest.raises(FileNotFoundError):
         T.load_checkpoint(str(tmp_path / "nothing"), _state())
 
