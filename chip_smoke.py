@@ -87,7 +87,7 @@ Phases, each printing one JSON line with its wall time:
               samples with a seeded frame rendered, then a resume to epoch
               3; conv5 (BatchNorm, SSIM) for one epoch of 2 steps. Checks:
               finite losses, moved parameters and BN buffers, the CSV's
-              columns and epochs 1-3, the checkpoints and the render, K1's
+              columns and epochs 1-3, the orbax checkpoints and the render, K1's
               counter 0 inside the train steps and one a validation batch,
               validation through K1 within 1e-3 relative of apply_eager, one
               fp32 step on the card from the seeded and the trained weights
@@ -198,7 +198,25 @@ Phases, each printing one JSON line with its wall time:
               checkpoint its last row names): the new row at epoch 13, the
               first step at the CSV's learning rate from the checkpoint's
               weights, bit for bit, K1 once a validation batch
-21. train_drivers  slice 12's training and NAS drivers (scripts/), each
+21. orbax_write  slice 15: the trainer's checkpoints in the JAX package's
+              orbax format (train/orbax_writer.py over utils/ocdbt.py's
+              writer and utils/zstd.py's compress: zstd frames of raw
+              blocks, no jax, tensorstore or zstd codec), on the card's host:
+              pix_shuffle (its own criterion, VGG on) and conv3 (BatchNorm)
+              from seeded weights, cuDNN deterministic, two optimizer steps
+              of 2 of the datagen phase's 376x288 crops, then
+              save_checkpoint and two rewrites over it (each write's
+              seconds, the bytes and files on disk, no temporary directory
+              left); read_orbax of the whole tree against the state on the
+              card, leaf for leaf (Adam's moments found by the tensor); a
+              fresh state restored by load_checkpoint, its learning rate
+              and leaves the state's, and one more step of both, leaf for
+              leaf; one seeded 576x752 frame through K1 with the
+              checkpoint's parameters against the state's, byte for byte
+              (K1 twice); then model_pix_shuffle_trained/
+              checkpoint_best_epoch73 read whole, written again by the port
+              and read back, leaf for leaf
+22. train_drivers  slice 12's training and NAS drivers (scripts/), each
               through its main on the card on the datagen phase's tree,
               outputs in temporary directories, K1's counter from 0 for
               each: the JAX package's random VGG basis drawn cold
@@ -219,11 +237,11 @@ Phases, each printing one JSON line with its wall time:
               hit); convert_vgg16_weights (exit 1 naming torchvision); the
               retention probe at 8 MB x 50 (GB retained per GB sent). The
               trainers' pid file holds this process's pid and is removed
-22. kernel_bench  the two kernel benches (slice 3's main path), about half
+23. kernel_bench  the two kernel benches (slice 3's main path), about half
               a second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-23. timing    K1's and K2's device time a call (median, min and max of 3
+24. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -242,7 +260,7 @@ Phases, each printing one JSON line with its wall time:
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-24. kernels   every kernel launched, held against its plain version
+25. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -373,6 +391,9 @@ ORBAX_PLATEAU = os.path.join(ART, "training_parity", "plateau_full", "checkpoint
 ORBAX_HEAVY = os.path.join(ART, "model_pix_shuffle_heavy", "checkpoint_best_epoch60")
 ORBAX_RESUME = os.path.join(ART, "training_parity", "ablation_novgg")
 ORBAX_RESUME_SAMPLES, ORBAX_RESUME_VAL = 4, 2
+# slice 15: the orbax_write phase's micro-batches a step (two steps before
+# the write, one after the restore) and the rewrites over the first write
+ORBAX_WRITE_ACCUM, ORBAX_WRITE_REWRITES = 2, 2
 
 # a child that imports only the port: load the artifact, enhance the frames,
 # save them and K1's launches
@@ -1051,6 +1072,8 @@ def train_phase(dev, tree: str, crop=(CROP_W, CROP_H), accum: int = TRAIN_ACCUM,
     from fs_uae_image_enhancer_project_tpu_torch.train import cli
     from fs_uae_image_enhancer_project_tpu_torch.train import gradcheck as gc
     from fs_uae_image_enhancer_project_tpu_torch.train import trainer as tr
+    from fs_uae_image_enhancer_project_tpu_torch.train.orbax_reader import (
+        is_orbax_checkpoint, read_orbax)
 
     w, h = crop
     m = get_model("pix_shuffle")
@@ -1110,20 +1133,19 @@ def train_phase(dev, tree: str, crop=(CROP_W, CROP_H), accum: int = TRAIN_ACCUM,
         rec["csv_losses"] = [[float(r[1]), float(r[2])] for r in rows[1:]]
         with open(os.path.join(ck, "metrics_pix_shuffle.jsonl")) as f:
             rec["metrics"] = [json.loads(line) for line in f]
-        rec["files"] = {n: os.path.exists(os.path.join(ck, *n.split("/"))) for n in (
-            f"checkpoint_best_pix_shuffle/{tr.CHECKPOINT_FILE}",
-            *(f"checkpoint_epoch_{e}_pix_shuffle/{tr.CHECKPOINT_FILE}" for e in (1, 2, 3)),
-            "predicted/frame0.png")}
+        rec["files"] = {n: is_orbax_checkpoint(os.path.join(ck, n)) for n in (
+            "checkpoint_best_pix_shuffle",
+            *(f"checkpoint_epoch_{e}_pix_shuffle" for e in (1, 2, 3)))}
+        rec["files"]["predicted/frame0.png"] = os.path.exists(
+            os.path.join(ck, "predicted", "frame0.png"))
         first = m.init(torch.Generator().manual_seed(0), device="cpu")
         last = tr.load_params(os.path.join(ck, "checkpoint_epoch_3_pix_shuffle"), first)
         rec["leaves_unmoved"] = sum(torch.equal(a, b) for a, b in zip(ts.leaves(first),
                                                                     ts.leaves(last)))
-        c5 = torch.load(os.path.join(ck5, "checkpoint_epoch_1_conv5", tr.CHECKPOINT_FILE),
-                        map_location="cpu", weights_only=True)
-        rec["conv5_checkpoint_step"] = c5["step"]
+        c5 = read_orbax(os.path.join(ck5, "checkpoint_epoch_1_conv5"))
+        rec["conv5_checkpoint_step"] = int(c5["step"])
         rec["conv5_bn_unmoved"] = sum(
-            torch.equal(v["mean"], torch.zeros_like(v["mean"]))
-            or torch.equal(v["var"], torch.ones_like(v["var"])) for v in c5["buffers"].values())
+            not v["mean"].any() or bool((v["var"] == 1).all()) for v in c5["buffers"].values())
         best = tr.load_params(os.path.join(ck, "checkpoint_best_pix_shuffle"),
                               m.init(device=dev))
 
@@ -1262,6 +1284,7 @@ def train_mesh(dev, tree: str, crop=(CROP_W, CROP_H), samples: int = 4, accum: i
     import contextlib
     import io
 
+    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -1273,6 +1296,7 @@ def train_mesh(dev, tree: str, crop=(CROP_W, CROP_H), samples: int = 4, accum: i
     from fs_uae_image_enhancer_project_tpu_torch.parallel.train_step import leaves
     from fs_uae_image_enhancer_project_tpu_torch.train import cli
     from fs_uae_image_enhancer_project_tpu_torch.train import trainer as tr
+    from fs_uae_image_enhancer_project_tpu_torch.train.orbax_reader import read_orbax
 
     m = get_model("pix_shuffle")
     train_pool, val_pool = split_pairs(gather_all_samples_from_directory(tree, crop, verbose=0),
@@ -1286,8 +1310,7 @@ def train_mesh(dev, tree: str, crop=(CROP_W, CROP_H), samples: int = 4, accum: i
         tr.Trainer(m, cfg).train(
             SRDataset(train_pool, crop, samples, transfer_dtype="uint8"),
             SRDataset(val_pool, crop, val_samples, flips=False, seed=1, transfer_dtype="uint8"))
-        return torch.load(os.path.join(ckpt_dir, "checkpoint_epoch_1_pix_shuffle",
-                                       tr.CHECKPOINT_FILE), map_location="cpu", weights_only=True)
+        return read_orbax(os.path.join(ckpt_dir, "checkpoint_epoch_1_pix_shuffle"))
 
     keep = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -1322,9 +1345,9 @@ def train_mesh(dev, tree: str, crop=(CROP_W, CROP_H), samples: int = 4, accum: i
         torch.backends.cudnn.deterministic = keep
     pairs = list(zip(leaves(plain["params"]) + leaves(plain["buffers"]),
                      leaves(meshed["params"]) + leaves(meshed["buffers"])))
-    rec.update(steps=[plain["step"], meshed["step"]], leaves=len(pairs),
+    rec.update(steps=[int(plain["step"]), int(meshed["step"])], leaves=len(pairs),
                param_leaves=len(leaves(meshed["params"])),
-               max_abs_diff=max(float((a - b).abs().max()) for a, b in pairs),
+               max_abs_diff=max(float(np.abs(a - b).max()) for a, b in pairs),
                validation_batches=val_samples)
 
     asked = max(2, torch.cuda.device_count() + 1)
@@ -2356,6 +2379,15 @@ def check_drivers(rec: dict, dev, scenes: int = DRIVER_SCENES, crops: int = DRIV
           f"build_artifacts took pix_shuffle_trained's weights from {trained}")
 
 
+def flat(tree, pre=()):
+    """(dotted path, leaf) of a nested dict or list, None leaves and empty
+    dicts left out."""
+    if isinstance(tree, (dict, list)):
+        keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
+        return [x for k in keys for x in flat(tree[k], pre + (str(k),))]
+    return [] if tree is None else [(".".join(pre), tree)]
+
+
 def orbax_phase(dev, tree: str, crop=(CROP_W, CROP_H), frame_hw=(576, 752),
                 samples: int = ORBAX_RESUME_SAMPLES, val_samples: int = ORBAX_RESUME_VAL) -> dict:
     """Slice 14: the JAX package's TPU-trained orbax checkpoints read by the
@@ -2383,14 +2415,8 @@ def orbax_phase(dev, tree: str, crop=(CROP_W, CROP_H), frame_hw=(576, 752),
     from fs_uae_image_enhancer_project_tpu_torch.parallel.train_step import leaves
     from fs_uae_image_enhancer_project_tpu_torch.train import cli
     from fs_uae_image_enhancer_project_tpu_torch.train import trainer as tr
-    from fs_uae_image_enhancer_project_tpu_torch.train.orbax_reader import read_orbax
-
-    def flat(tree, pre=()):
-        """(dotted path, leaf) of a nested dict or list, None leaves left out."""
-        if isinstance(tree, (dict, list)):
-            keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
-            return [x for k in keys for x in flat(tree[k], pre + (str(k),))]
-        return [] if tree is None else [(".".join(pre), tree)]
+    from fs_uae_image_enhancer_project_tpu_torch.train.orbax_reader import (
+        is_orbax_checkpoint, read_orbax)
 
     rec: dict = {"reads": {}}
     read = {}
@@ -2492,8 +2518,7 @@ def orbax_phase(dev, tree: str, crop=(CROP_W, CROP_H), frame_hw=(576, 752),
             csv_rows_before=len(rows) - 1,
             csv_rows_after=len(after) - 1, csv_lr=float(rows[-1][4]),
             first_step_lr=first_step.get("lr"), new_row=after[-1] if new_ck else None,
-            new_checkpoint_written=bool(new_ck and os.path.isfile(
-                os.path.join(new_ck, tr.CHECKPOINT_FILE))),
+            new_checkpoint_written=bool(new_ck and is_orbax_checkpoint(new_ck)),
             first_step_params_equal_to_checkpoint=bool(first_step) and len(
                 first_step["params"]) == len(want) and all(
                 torch.equal(a, b) for a, b in zip(first_step["params"], want)))
@@ -2527,6 +2552,175 @@ def check_orbax(rec: dict, dev) -> None:
     want = r["val_samples"] if on_card else 0  # one a validation batch of 1
     check(rec["resume_k1_launches"] == want,
           f"the resume's validation launched K1 {rec['resume_k1_launches']} times, not {want}")
+
+
+def orbax_write(dev, tree: str, crop=(CROP_W, CROP_H), accum: int = ORBAX_WRITE_ACCUM,
+                frame_hw=(576, 752), rewrites: int = ORBAX_WRITE_REWRITES) -> dict:
+    """Slice 15: the trainer's checkpoints in the JAX package's orbax format
+    (``train/orbax_writer.py`` over ``utils/ocdbt.py``'s writer and
+    ``utils/zstd.py``'s ``compress``), written on the card's host. For the
+    lightweight pix_shuffle (its own criterion, VGG on) and conv3
+    (BatchNorm), cuDNN deterministic: two optimizer steps of ``accum`` uint8
+    crops of ``tree`` at ``crop`` from the seeded initial weights, then
+    ``save_checkpoint`` once and ``rewrites`` times more over it (the best
+    checkpoint is rewritten on each improvement), each write timed, and the
+    bytes and files on disk; ``read_orbax`` of the whole tree against the
+    state on the card, leaf for leaf (Adam's moments found by the tensor);
+    a fresh state from other seeds restored by ``load_checkpoint``, and one
+    more step of both on a third batch, leaf for leaf. For pix_shuffle, one
+    seeded frame through K1 with the checkpoint's parameters
+    (``load_params``) against the in-memory ones, byte for byte. Then the
+    committed TPU-trained ``checkpoint_best_epoch73`` read whole, written
+    again by the port and read back, leaf for leaf."""
+    import numpy as np
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.data import (
+        SRDataset, batch_transform, gather_all_samples_from_directory)
+    from fs_uae_image_enhancer_project_tpu_torch.export.enhance import make_enhance_fn
+    from fs_uae_image_enhancer_project_tpu_torch.losses import build_criterion
+    from fs_uae_image_enhancer_project_tpu_torch.models import get_model, train_apply
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+    from fs_uae_image_enhancer_project_tpu_torch.parallel import train_step as ts
+    from fs_uae_image_enhancer_project_tpu_torch.train import trainer as tr
+    from fs_uae_image_enhancer_project_tpu_torch.train.orbax_reader import read_orbax
+    from fs_uae_image_enhancer_project_tpu_torch.train.orbax_writer import write_orbax
+
+    whole = ("step", "params", "buffers", "opt_state")
+    pairs = gather_all_samples_from_directory(tree, crop, verbose=0)
+
+    def on_host(state) -> dict:
+        """``state`` as the leaves its checkpoint must hold: the optimizer's
+        own state dicts, each moment by its parameter tensor."""
+        params = dict(flat(state.params))
+        out = {"step": np.int32(state.step), "opt_state.2.count": np.int32(
+            state.scheduler.last_epoch)}
+        out.update({f"params.{k}": t.detach().cpu().numpy() for k, t in params.items()})
+        out.update({f"buffers.{k}": t.cpu().numpy() for k, t in flat(state.buffers)})
+        for k, t in params.items():
+            st = state.optimizer.state[t]
+            out[f"opt_state.1.mu.{k}"] = st["exp_avg"].cpu().numpy()
+            out[f"opt_state.1.nu.{k}"] = st["exp_avg_sq"].cpu().numpy()
+            out["opt_state.1.count"] = np.int32(st["step"].item())
+        return out
+
+    def differing(got: dict, want: dict) -> list:
+        if sorted(got) != sorted(want):
+            return sorted(set(got) ^ set(want))
+        return [k for k in want if not (np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
+                                        and np.array_equal(got[k], want[k]))]
+
+    def disk(path: str) -> dict:
+        sizes = [os.path.getsize(os.path.join(r, f)) for r, _d, fs_ in os.walk(path)
+                 for f in fs_]
+        return dict(bytes=sum(sizes), files=len(sizes))
+
+    rec: dict = {}
+    keep = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name in ("pix_shuffle", "conv3"):
+                m = get_model(name)
+                bn = name == "conv3"
+                ds = SRDataset(pairs, crop, 3 * accum, batch_size=1, linear=m.linear_io,
+                               flips=False, seed=15, transfer_dtype="uint8")
+                lrs, hrs = zip(*[(torch.from_numpy(a), torch.from_numpy(b)) for a, b in ds])
+                batches = [(torch.stack(lrs[i:i + accum]).to(dev),
+                            torch.stack(hrs[i:i + accum]).to(dev))
+                           for i in range(0, 3 * accum, accum)]
+                step = ts.make_train_step(train_apply(m), build_criterion(m.loss, device=dev),
+                                          has_batchnorm=bn, compute_dtype=torch.bfloat16,
+                                          input_transform=batch_transform(m.linear_io))
+
+                def fresh(seed):
+                    return ts.init_train_state(
+                        m.init(torch.Generator().manual_seed(seed), device=dev),
+                        ts.make_optimizer(steps_per_epoch=1), has_batchnorm=bn)
+
+                state = fresh(0)
+                for b in batches[:2]:
+                    state, _ = step(state, *b)
+                _sync(dev)
+                path = os.path.join(tmp, f"checkpoint_best_{name}")
+                write_s = []
+                for _ in range(1 + rewrites):
+                    t0 = time.perf_counter()
+                    tr.save_checkpoint(path, state)
+                    write_s.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                back = read_orbax(path, whole)
+                read_s = time.perf_counter() - t0
+                want = on_host(state)
+                r = dict(write_s=write_s, read_s=read_s, **disk(path),
+                         leaves=len(want), step=int(back["step"]),
+                         lr=state.optimizer.param_groups[0]["lr"],
+                         left_over=[n for n in os.listdir(tmp) if "orbax-checkpoint" in n],
+                         read_differing=differing(dict(flat(back)), want),
+                         buffers=len(flat(back["buffers"])))
+                restored = tr.load_checkpoint(path, fresh(1))
+                r["restored_lr"] = restored.optimizer.param_groups[0]["lr"]
+                r["restored_differing"] = differing(on_host(restored), want)
+                if name == "pix_shuffle":
+                    # the checkpoint's weights through K1 against the state's
+                    frame = np.random.default_rng(15).integers(0, 256, (1, *frame_hw, 4),
+                                                               dtype=np.uint8)
+                    before = fs.fused_stack.launches
+                    outs = [make_enhance_fn(m.apply, p, crop_left=16, device=dev)(frame)
+                            .cpu().numpy() for p in (
+                                ts.merge_bn_buffers(state.params, state.buffers),
+                                tr.load_params(path, m.init(device=dev)))]
+                    r["k1_launches"] = fs.fused_stack.launches - before
+                    r["frame_equal"] = bool(np.array_equal(*outs))
+                    r["frame_shape"] = list(outs[0].shape)
+                state, loss_a = step(state, *batches[2])
+                restored, loss_b = step(restored, *batches[2])
+                r["next_step_losses"] = [float(loss_a), float(loss_b)]
+                r["next_step_differing"] = differing(on_host(restored), on_host(state))
+                rec[name] = r
+                print(f"orbax_write {name}: {r['bytes']} bytes in {r['files']} files, "
+                      f"written in {min(write_s):.4f}-{max(write_s):.4f} s", flush=True)
+
+            # the committed TPU-trained checkpoint written again by the port
+            t0 = time.perf_counter()
+            src = read_orbax(ORBAX_TRAINED, whole)
+            read_s = time.perf_counter() - t0
+            src["buffers"] = {tr.EMPTY_BUFFERS: np.zeros((1,), np.float32)}
+            out = os.path.join(tmp, "checkpoint_best_epoch73")
+            t0 = time.perf_counter()
+            write_orbax(out, src)
+            write_s = time.perf_counter() - t0
+            again = read_orbax(out, whole)
+            rec["epoch73"] = dict(
+                read_s=read_s, write_s=write_s, **disk(out),
+                jax_bytes=disk(ORBAX_TRAINED)["bytes"], leaves=len(flat(again)),
+                differing=differing(dict(flat(again)), dict(flat(dict(src, buffers={})))))
+    finally:
+        torch.backends.cudnn.deterministic = keep
+    return rec
+
+
+def check_orbax_write(rec: dict, dev) -> None:
+    """The orbax_write phase's checks; K1 launches only on a card."""
+    for name in ("pix_shuffle", "conv3"):
+        r = rec[name]
+        check(not r["read_differing"] and r["step"] == 2
+              and (r["buffers"] > 0) == (name == "conv3"),
+              f"{name}: the checkpoint read back differs from the state: {r}")
+        check(not r["left_over"], f"{name}: the rewrites left {r['left_over']}")
+        check(not r["restored_differing"] and r["restored_lr"] == r["lr"],
+              f"{name}: the restored state differs: {r}")
+        check(not r["next_step_differing"] and r["next_step_losses"][0] == r["next_step_losses"][1],
+              f"{name}: the next step from the restored state differs: {r}")
+        check(r["bytes"] > 0 and all(math.isfinite(x) for x in r["write_s"]),
+              f"{name}: the writes: {r}")
+    p = rec["pix_shuffle"]
+    check(p["frame_equal"], "the checkpoint's frame through K1 differs from the state's")
+    check(p["k1_launches"] == (2 if dev.type == "cuda" else 0),
+          f"K1 launched {p['k1_launches']} times for the two frames")
+    e = rec["epoch73"]
+    check(not e["differing"] and e["leaves"] > 0,
+          f"epoch73 written again differs: {e['differing']}")
 
 
 def timed_steps(module, name: str, dev, record: list):
@@ -2956,7 +3150,8 @@ def check_recipes(rec: dict, dev) -> None:
           f"train_pix_shuffle.sh: CSV epochs {trn['csv_epochs']}, metrics {trn['metrics']}")
     check(all(math.isfinite(m["train_loss"]) and math.isfinite(m["val_loss"])
               for m in trn["metrics"]), f"train_pix_shuffle.sh losses: {trn['metrics']}")
-    check(bool(trn["best_checkpoint"]), "train_pix_shuffle.sh saved no best checkpoint")
+    check({"_METADATA", "manifest.ocdbt"} <= set(trn["best_checkpoint"]),
+          f"train_pix_shuffle.sh saved no orbax best checkpoint: {trn['best_checkpoint']}")
     check((trn["metrics"][0]["val_k1_launches"] > 0) == on_card,
           f"validation launched K1 {trn['metrics'][0]['val_k1_launches']} times")
     srv = rec["serve"]
@@ -3343,7 +3538,19 @@ def main(argv=None) -> int:
     emit("orbax", t0, **orb, nvidia_smi=smi)
     check_orbax(orb, dev)
 
-    # 21. train_drivers: slice 12's training and NAS drivers on the datagen
+    # 21. orbax_write: slice 15, the trainer's checkpoints written in the
+    # JAX package's orbax format on the card's host, read back, restored and
+    # served through K1; counters from 0
+    _phase = "orbax_write"
+    t0 = time.perf_counter()
+    for counter in _counters().values():
+        counter.launches = 0
+    ow = orbax_write(dev, tree)
+    ow["launches"] = {k: c.launches for k, c in _counters().items()}
+    emit("orbax_write", t0, **ow, nvidia_smi=smi)
+    check_orbax_write(ow, dev)
+
+    # 22. train_drivers: slice 12's training and NAS drivers on the datagen
     # phase's tree, K1's counter from 0 for each
     _phase = "train_drivers"
     t0 = time.perf_counter()
@@ -3352,7 +3559,7 @@ def main(argv=None) -> int:
     emit("train_drivers", t0, **tdrv, nvidia_smi=smi)
     check_train_drivers(tdrv, dev)
 
-    # 22. kernel_bench: slice 3's main path, every counter from 0
+    # 23. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -3362,7 +3569,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 23. timing at the main paths' shapes
+    # 24. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -3436,7 +3643,7 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 24. kernels
+    # 25. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
@@ -3449,6 +3656,7 @@ def main(argv=None) -> int:
         export_child_launches=exp["pix_shuffle"]["child"]["k1_launches"],
         int8_study_launches=i8["k1_launches"], drivers_launches=drv_launches["fused_stack"],
         orbax_launches=orb["launches"]["fused_stack"],
+        orbax_write_launches=ow["launches"]["fused_stack"],
         recipes_launches=rcp["launches"]["fused_stack"],
         train_drivers_launches={k: r["k1_launches"] for k, r in tdrv.items()
                                 if isinstance(r, dict) and "k1_launches" in r},

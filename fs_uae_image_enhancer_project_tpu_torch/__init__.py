@@ -59,6 +59,13 @@ What is ported, by slice:
    ``train.orbax_reader``): the trainer's ``load_params``,
    ``load_checkpoint`` and CSV resume take them, and so the export CLI and
    the drivers.
+14. the JAX package's orbax checkpoints written by the port's trainer, again
+   without jax, orbax, tensorstore or a zstd codec (``utils.zstd.compress``,
+   ``utils.ocdbt.write_store``, ``train.orbax_writer``): optax's state of
+   ``make_optimizer``'s chain from torch's Adam and the scheduler, so the
+   JAX package restores, resumes and exports a run trained on the card; and
+   the port's console scripts (``fse-torch-*`` in ``pyproject.toml``, one for
+   each of the JAX package's).
 
 The port now does all that the JAX package does. Two JAX modules keep no
 counterpart: ``utils/compile_cache.py`` (the hash-keyed nvcc cache of

@@ -4,9 +4,9 @@
         --checkpoint ckpts/checkpoint_best_pix_shuffle \
         --model_type pix_shuffle --output pix_shuffle.onnx [--device cpu]
 
-Port of ``fs_uae_image_enhancer_project_tpu/export/cli.py``: it loads a
-checkpoint of the port's trainer or an orbax checkpoint of the JAX package's
-(``train.trainer.load_params``), exports the
+Port of ``fs_uae_image_enhancer_project_tpu/export/cli.py``: it loads an
+orbax checkpoint of either package's trainer (``train.trainer.load_params``),
+exports the
 family (conv3/conv5 fused first) with ``export.onnx_export``, verifies the
 graph with the numpy runner on a random uint8 frame (the full frame for
 pix_shuffle, a 160x160 graph with the same weights for the rest) and
@@ -32,7 +32,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     ap = argparse.ArgumentParser(description="Export a trained model for deployment")
     ap.add_argument("--checkpoint", required=True,
-                    help="a checkpoint dir of the port's trainer, or the JAX package's orbax one")
+                    help="an orbax checkpoint dir of either package's trainer")
     ap.add_argument("--model_type", default="pix_shuffle",
                     choices=["pix_shuffle", "pix_shuffle_heavy",
                              "conv3", "conv3_heavy", "conv5", "conv5_heavy",

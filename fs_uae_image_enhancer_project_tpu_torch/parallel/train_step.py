@@ -45,6 +45,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.conv import no_tf32
@@ -99,6 +100,8 @@ def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-5,
     optimizer step; the learning rate of step ``s`` (from 0) is
     ``lr * lr_decay_rate ** (s // steps_per_epoch)``, optax's staircase
     ``exponential_decay``, and stays ``lr`` without ``steps_per_epoch``.
+    :func:`optax_state` and :func:`restore_optax` map the pair to optax's
+    state of the JAX package's chain and back.
     """
 
     def build(tensors):
@@ -108,9 +111,76 @@ def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-5,
             factor = lambda s: lr_decay_rate ** (s // steps_per_epoch)  # noqa: E731
         else:
             factor = lambda s: 1.0  # noqa: E731
-        return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+        sched = torch.optim.lr_scheduler.LambdaLR(opt, factor)
+        sched._steps_per_epoch = steps_per_epoch or None  # read by optax_state
+        return opt, sched
 
     return build
+
+
+def optax_state(state: TrainState) -> list:
+    """``state``'s optimizer and scheduler as optax's state for
+    :func:`make_optimizer`'s chain (as the JAX package's ``make_optimizer``
+    builds it): ``[None, {"count", "mu", "nu"}, {"count"}]``, the first
+    ``add_decayed_weights``' empty state, the last ``None`` without
+    ``steps_per_epoch``. ``mu`` and ``nu`` are Adam's ``exp_avg`` and
+    ``exp_avg_sq`` of each parameter leaf, found by the tensor itself (zeros
+    before its first step); the counts are int32: Adam's step and the
+    scheduler's."""
+    opt = state.optimizer
+    steps = set()
+
+    def moments(node, name):
+        if isinstance(node, dict):
+            return {k: moments(v, name) for k, v in node.items()}
+        st = opt.state.get(node, {})
+        if "step" in st:
+            steps.add(int(st["step"]))
+        if name not in st:
+            return np.zeros(tuple(node.shape), np.float32)
+        return st[name].detach().cpu().numpy()
+
+    mu, nu = moments(state.params, "exp_avg"), moments(state.params, "exp_avg_sq")
+    if len(steps) > 1:
+        raise ValueError(f"Adam's parameters took different numbers of steps: {sorted(steps)}")
+    count = np.int32(steps.pop() if steps else 0)
+    sched = state.scheduler
+    schedule = (None if getattr(sched, "_steps_per_epoch", None) is None
+                else {"count": np.int32(sched.last_epoch)})
+    return [None, {"count": count, "mu": mu, "nu": nu}, schedule]
+
+
+def restore_optax(state: TrainState, opt_state) -> None:
+    """Put optax's state of ``make_optimizer``'s chain (:func:`optax_state`)
+    into ``state``'s optimizer and scheduler: each parameter leaf's moments
+    and Adam's step, and the schedule's count (Adam's where the chain has no
+    schedule) with the learning rate it gives."""
+    adam = opt_state[1] if isinstance(opt_state, list) and len(opt_state) == 3 else None
+    if not isinstance(adam, dict) or set(adam) != {"count", "mu", "nu"}:
+        raise ValueError("the checkpoint's opt_state is not make_optimizer's chain "
+                         "(add_decayed_weights, scale_by_adam, the learning rate)")
+    count = int(adam["count"])
+    opt = state.optimizer
+
+    def put(node, mu, nu):
+        if isinstance(node, dict):
+            for k in node:
+                put(node[k], mu[k], nu[k])
+        elif count:
+            opt.state[node] = {  # a step tensor each, as Adam makes them
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.tensor(mu, dtype=node.dtype, device=node.device),
+                "exp_avg_sq": torch.tensor(nu, dtype=node.dtype, device=node.device)}
+        else:
+            opt.state.pop(node, None)
+
+    put(state.params, adam["mu"], adam["nu"])
+    sched = state.scheduler
+    n = int(opt_state[2]["count"]) if isinstance(opt_state[2], dict) else count
+    sched.last_epoch, sched._step_count = n, n + 1
+    for group, base, factor in zip(opt.param_groups, sched.base_lrs, sched.lr_lambdas):
+        group["lr"] = base * factor(n)
+    sched._last_lr = [group["lr"] for group in opt.param_groups]
 
 
 def init_train_state(params: Dict, optimizer, *, has_batchnorm: bool = False) -> TrainState:

@@ -39,12 +39,13 @@ import numpy as np
 from ..utils import zstd
 from ..utils.ocdbt import OcdbtStore
 
-__all__ = ["OrbaxError", "is_orbax_checkpoint", "read_orbax"]
+__all__ = ["EMPTY_BUFFERS", "OrbaxError", "is_orbax_checkpoint", "read_orbax"]
 
 _DTYPES = {"<f4": np.dtype("<f4"), "<i4": np.dtype("<i4"), "<i8": np.dtype("<i8"),
            "bfloat16": np.dtype("<u2")}
 _FILLS = {"NaN": np.nan, "Infinity": np.inf, "-Infinity": -np.inf}
-_EMPTY_BUFFERS = "__empty__"
+# the buffers of a model without batchnorm, as the JAX trainer saves them
+EMPTY_BUFFERS = "__empty__"
 
 
 class OrbaxError(ValueError):
@@ -164,6 +165,6 @@ def read_orbax(path: str, subtrees: Iterable[str] = ("step", "params", "buffers"
     if missing:
         raise OrbaxError(f"{path}: no subtree {sorted(missing)}")
     buffers = tree.get("buffers")
-    if isinstance(buffers, dict) and _EMPTY_BUFFERS in buffers:
+    if isinstance(buffers, dict) and EMPTY_BUFFERS in buffers:
         tree["buffers"] = {}
     return tree

@@ -18,15 +18,19 @@ and per-epoch metrics (JSONL).
   the loss, and the validation loss is all-reduced too: every rank takes the
   same decisions and leaves with the same parameters. Rank 0 alone writes
   the CSV, the metrics, the checkpoints and the renders.
-- Checkpoints are ``torch.save`` files (step, parameters, batchnorm buffers,
-  optimizer and scheduler state), one a directory, at the JAX package's path
-  names. The CSV stays the resume source for epochs, patience and the
-  learning rate.
-- The JAX package's orbax checkpoints are read too (``orbax_reader``): step,
-  parameters and buffers, never optax's state. So a run the JAX trainer
-  began resumes here as it would there, with its weights and buffers, a
-  fresh optimizer and the CSV's learning rate, and ``load_params`` serves
-  export and evaluation.
+- Checkpoints are the JAX package's: orbax directories (``orbax_writer``)
+  of ``{step, params, buffers, opt_state}`` at its path names, Adam's and
+  the schedule's state as optax's tree for ``make_optimizer``'s chain
+  (``parallel.train_step.optax_state``). So the JAX package's
+  ``load_params`` and ``load_checkpoint`` restore a run trained here, and
+  its trainer resumes one from the CSV. The CSV stays the resume source for
+  epochs, patience and the learning rate.
+- Either package's orbax checkpoints are read (``orbax_reader``): so a run
+  the JAX trainer began resumes here as it would there, with its weights
+  and buffers, a fresh optimizer and the CSV's learning rate, and
+  ``load_params`` serves export and evaluation. A ``state.pt`` that earlier
+  runs of the port wrote with ``torch.save`` is still read; nothing writes
+  one any more.
 """
 from __future__ import annotations
 
@@ -56,14 +60,19 @@ from ..parallel.train_step import (
     make_optimizer,
     make_train_step,
     merge_bn_buffers,
+    optax_state,
+    restore_optax,
 )
-from .orbax_reader import is_orbax_checkpoint, read_orbax
+from .orbax_reader import EMPTY_BUFFERS, is_orbax_checkpoint, read_orbax
+from .orbax_writer import committed, write_orbax
 
 CSV_HEADER = [
     "Epoch", "Train Loss", "Validation Loss", "EpochsNoImprove",
     "LearningRate", "Checkpoint Path",
 ]
-CHECKPOINT_FILE = "state.pt"
+# the torch.save file of a checkpoint directory that earlier runs of the
+# port wrote: read, never written
+LEGACY_CHECKPOINT_FILE = "state.pt"
 
 
 def save_training_stats(csv_file: str, epoch: int, train_loss: float, val_loss: float,
@@ -103,43 +112,49 @@ def load_last_epoch_and_checkpoint(
 # checkpoint I/O
 # ---------------------------------------------------------------------------
 
-def _to_cpu(tree):
+def _host(tree):
+    """A tree of tensors as numpy arrays on the host, each in its own dtype
+    (the bytes unchanged; an empty dict stays one)."""
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    return tree.detach().cpu()
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
 
 
 def save_checkpoint(path: str, state: TrainState) -> None:
-    """Write ``state`` to the directory ``path`` (created if need be) as one
-    ``torch.save`` file, through a temporary name and ``os.replace``."""
-    path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    payload = {
-        "step": state.step, "params": _to_cpu(state.params),
-        "buffers": _to_cpu(state.buffers),
-        "optimizer": state.optimizer.state_dict(),
-        "scheduler": state.scheduler.state_dict(),
-    }
-    final = os.path.join(path, CHECKPOINT_FILE)
-    tmp = final + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, final)
+    """Write ``state`` to the directory ``path`` as the JAX package's
+    ``save_checkpoint`` does: an orbax checkpoint of ``{step (int32),
+    params, buffers (the __empty__ sentinel without batchnorm), opt_state
+    (``parallel.train_step.optax_state``)}``, each leaf copied to the host
+    bit for bit. A checkpoint already at ``path`` is replaced once the new
+    one is whole."""
+    write_orbax(path, {
+        "step": np.int32(state.step), "params": _host(state.params),
+        "buffers": (_host(state.buffers) if state.buffers
+                    else {EMPTY_BUFFERS: np.zeros((1,), np.float32)}),
+        "opt_state": optax_state(state)})
 
 
-def _read(path: str) -> dict:
-    """The checkpoint in directory ``path`` as CPU tensors: the port's
-    ``torch.save`` file (step, params, buffers, optimizer, scheduler), or an
-    orbax checkpoint of the JAX package (step, params, buffers)."""
-    path = os.path.abspath(path)
-    f = os.path.join(path, CHECKPOINT_FILE)
+def _read(path: str, opt_state: bool = False) -> dict:
+    """The checkpoint in directory ``path`` as CPU tensors: an orbax
+    checkpoint of either package (step, params, buffers, and optax's
+    ``opt_state`` if asked), or an earlier port run's ``torch.save`` file
+    (step, params, buffers, optimizer, scheduler). A checkpoint whose
+    rewrite died between its renames is read where it was set aside
+    (``orbax_writer.committed``)."""
+    path = committed(path)
+    f = os.path.join(path, LEGACY_CHECKPOINT_FILE)
     if os.path.isfile(f):
         return torch.load(f, map_location="cpu", weights_only=True)
     if is_orbax_checkpoint(path):
-        saved = read_orbax(path)
-        return {"step": int(saved["step"]),
-                "params": params_from_jax(saved["params"], device="cpu"),
-                "buffers": params_from_jax(saved["buffers"], device="cpu")}
-    raise FileNotFoundError(f"no port checkpoint at {f} and no orbax checkpoint at {path}")
+        subtrees = ("step", "params", "buffers") + (("opt_state",) if opt_state else ())
+        saved = read_orbax(path, subtrees)
+        out = {"step": int(saved["step"]),
+               "params": params_from_jax(saved["params"], device="cpu"),
+               "buffers": params_from_jax(saved["buffers"], device="cpu")}
+        if opt_state:
+            out["opt_state"] = saved["opt_state"]
+        return out
+    raise FileNotFoundError(f"no orbax checkpoint and no {LEGACY_CHECKPOINT_FILE} at {path}")
 
 
 def _copy_into(dst, src):
@@ -168,17 +183,19 @@ def load_params(path: str, params_template):
 
 
 def load_checkpoint(path: str, template: TrainState) -> TrainState:
-    """Restore a checkpoint into ``template``: parameters and buffers are
-    copied in place and the step is the checkpoint's. A port checkpoint
-    also loads the optimizer and scheduler state; an orbax checkpoint of
-    the JAX package leaves ``template``'s optimizer as it is (fresh, for a
-    template from ``init_train_state``), since optax's state is not read."""
-    saved = _read(path)
+    """Restore a checkpoint into ``template`` (from ``init_train_state``):
+    parameters and buffers are copied in place, the step is the
+    checkpoint's, and the optimizer and scheduler take its state: optax's
+    ``opt_state`` of an orbax checkpoint (of either package's
+    ``make_optimizer`` chain), or an earlier ``state.pt``'s state dicts."""
+    saved = _read(path, opt_state=True)
     _copy_into(template.params, saved["params"])
     _copy_into(template.buffers, saved["buffers"])
     if "optimizer" in saved:
         template.optimizer.load_state_dict(saved["optimizer"])
         template.scheduler.load_state_dict(saved["scheduler"])
+    else:
+        restore_optax(template, saved["opt_state"])
     return template._replace(step=saved["step"])
 
 
@@ -334,7 +351,7 @@ class Trainer:
                   f"patience used {no_improve}, lr {lr0}")
         if state is None:
             params = m.init(torch.Generator().manual_seed(0), device=dev)
-            if ckpt_path and not os.path.isdir(ckpt_path):
+            if ckpt_path and not os.path.isdir(committed(ckpt_path)):
                 # the CSV says this run resumes from that checkpoint: going on
                 # from fresh weights against the CSV's best would waste the run
                 raise FileNotFoundError(

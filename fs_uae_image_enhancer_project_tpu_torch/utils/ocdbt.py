@@ -1,9 +1,9 @@
-"""A read-only OCDBT key-value store over a directory.
+"""An OCDBT key-value store over a directory: a reader and a writer.
 
 OCDBT (tensorstore's "optionally-cooperative distributed B+tree") is the
 store orbax writes a checkpoint into: a manifest, a version tree and a B+tree
 whose leaves hold each value inline or as a range of a data file. This
-module reads that format without tensorstore:
+module reads and writes that format without tensorstore:
 
 - every encoded manifest and node is ``magic (uint32 big-endian) | length
   (uint64) | version (varint) | compression (varint: 0 none, 1 zstd) |
@@ -23,22 +23,37 @@ stored one field at a time over all its entries.
 
 ``OcdbtStore(path).list()`` gives the keys of the newest version in order,
 ``read(key)`` a value's bytes and ``versions()`` every version the version
-tree records. No torch, no tensorstore.
+tree records.
+
+``write_store(path, items)`` writes a new store of one version (generation
+1, inline in ``manifest.ocdbt``) under the config of the JAX package's
+checkpoints (:data:`CONFIG`): values of at most ``max_inline_value_bytes``
+inline, the others and every B+tree node in one data file ``d/<32 hex>``,
+nodes and the manifest as zstd frames of raw blocks (:func:`.zstd.compress`).
+One leaf holds every key unless it would decode to more than
+``max_decoded_node_bytes``; then interior nodes index the leaves. Only
+manifests and nodes carry a CRC-32C, so the pure-Python CRC never sees the
+values' bytes. No torch, no tensorstore.
 """
 from __future__ import annotations
 
 import glob
 import os
+import time
 from typing import Dict, List, Optional, Tuple
 
 from . import zstd
 
-__all__ = ["OcdbtError", "OcdbtStore", "crc32c"]
+__all__ = ["CONFIG", "OcdbtError", "OcdbtStore", "crc32c", "write_store"]
 
 _MANIFEST_MAGIC = 0x0CDB3A2A
 _VERSION_NODE_MAGIC = 0x0CDB1234
 _BTREE_NODE_MAGIC = 0x0CDB20DE
 _MANIFEST = "manifest.ocdbt"
+# the config of the JAX package's checkpoints (each store draws its own uuid)
+CONFIG = {"manifest_kind": "single", "max_inline_value_bytes": 1024,
+          "max_decoded_node_bytes": 100_000_000, "version_tree_arity_log2": 4,
+          "compression": {"id": "zstd", "level": 0}}
 
 
 class OcdbtError(ValueError):
@@ -358,3 +373,168 @@ class OcdbtStore:
             key = key.encode()
         ref = self._tree()[key]
         return ref[0] if len(ref) == 1 else self._range(ref)
+
+
+# ---------------------------------------------------------------------------
+# writer
+# ---------------------------------------------------------------------------
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _varints(values) -> bytes:
+    return b"".join(map(_varint, values))
+
+
+def _common(a: bytes, b: bytes) -> int:
+    """The length of the longest common prefix of ``a`` and ``b``."""
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
+
+
+def _encode(body: bytes, magic: int) -> bytes:
+    """The framing :func:`_decode` checks: magic, length, format version 0,
+    zstd (compression 1), the body as a zstd frame and the CRC-32C over all
+    before it."""
+    payload = _varint(1) + zstd.compress(body)
+    head = magic.to_bytes(4, "big") + (12 + 1 + len(payload) + 4).to_bytes(8, "little")
+    encoded = head + _varint(0) + payload
+    return encoded + crc32c(encoded).to_bytes(4, "little")
+
+
+def _file_table(paths: List[str]) -> bytes:
+    """A data file table of ``paths`` (sorted), each under the empty base
+    path, each sharing its prefix with the one before."""
+    raw = [p.encode() for p in paths]
+    keep = [_common(raw[i - 1], raw[i]) for i in range(1, len(raw))]
+    suffix = [len(r) - (keep[i - 1] if i else 0) for i, r in enumerate(raw)]
+    return (_varint(len(raw)) + _varints(keep) + _varints(suffix) + _varints([0] * len(raw))
+            + b"".join(r[len(r) - n:] for r, n in zip(raw, suffix)))
+
+
+def _key_columns(keys: List[bytes]) -> Tuple[bytes, bytes]:
+    """A node's key columns: (prefix and suffix lengths, the suffixes)."""
+    keep = [_common(keys[i - 1], keys[i]) for i in range(1, len(keys))]
+    suffix = [k[keep[i - 1]:] if i else k for i, k in enumerate(keys)]
+    return _varints(keep) + _varints(map(len, suffix)), b"".join(suffix)
+
+
+def _leaf(items: List[Tuple[bytes, bytes]], prefix: int, inline_max: int,
+          data_file: str, offsets: Dict[bytes, int]) -> bytes:
+    """A leaf node's body: keys less their first ``prefix`` bytes, values
+    inline or at ``offsets`` in ``data_file``."""
+    indirect = [(k, v) for k, v in items if len(v) > inline_max]
+    lengths, suffixes = _key_columns([k[prefix:] for k, _ in items])
+    return b"".join([
+        b"\0", _file_table([data_file] if indirect else []), _varint(len(items)), lengths,
+        suffixes, _varints(len(v) for _, v in items),
+        _varints(int(len(v) > inline_max) for _, v in items),
+        _varints([0] * len(indirect)), _varints(offsets[k] for k, _ in indirect),
+        b"".join(v for _, v in items if len(v) <= inline_max)])
+
+
+def _interior(height: int, children: List[dict], prefix: int, data_file: str) -> bytes:
+    """An interior node's body: each child by its first key and the prefix
+    its whole subtree shares (less this node's first ``prefix`` bytes)."""
+    lengths, suffixes = _key_columns([c["first"][prefix:] for c in children])
+    return b"".join([
+        bytes([height]), _file_table([data_file]), _varint(len(children)), lengths,
+        _varints(len(c["prefix"]) - prefix for c in children), suffixes,
+        _varints([0] * len(children)), _varints(c["offset"] for c in children),
+        _varints(c["length"] for c in children),
+        *(_varints(c[k] for c in children)
+          for k in ("num_keys", "num_tree_bytes", "num_indirect_value_bytes"))])
+
+
+def _groups(costs: List[int], limit: int) -> List[Tuple[int, int]]:
+    """Consecutive ``[start, stop)`` runs of entries whose costs, plus a
+    node's overhead, stay within ``limit``."""
+    runs, start, used = [], 0, 256
+    for i, c in enumerate(costs):
+        if 256 + c > limit:
+            raise OcdbtError(f"an entry of about {c} bytes exceeds a node's {limit}")
+        if used + c > limit:
+            runs.append((start, i))
+            start, used = i, 256
+        used += c
+    return runs + [(start, len(costs))]
+
+
+def write_store(path: str, items: Dict[bytes, bytes]) -> None:
+    """Write ``items`` as a new OCDBT store in the directory ``path``
+    (created if need be; it must hold no store yet) under :data:`CONFIG`."""
+    if not items:
+        raise OcdbtError("a store with no key is not written")
+    inline_max, limit = CONFIG["max_inline_value_bytes"], CONFIG["max_decoded_node_bytes"]
+    entries = sorted(items.items())
+    data_file = "d/" + os.urandom(16).hex()
+    blob = bytearray()
+    offsets: Dict[bytes, int] = {}
+    for k, v in entries:
+        if len(v) > inline_max:
+            offsets[k] = len(blob)
+            blob += v
+    indirect = len(blob)
+
+    def put(body: bytes, magic: int) -> Tuple[int, int]:
+        encoded = _encode(body, magic)
+        blob.extend(encoded)
+        return len(blob) - len(encoded), len(encoded)
+
+    # leaves, then interior levels until one node holds the rest; a node
+    # under a parent leaves out the prefix its subtree shares, the root none
+    costs = [len(k) + 40 + (len(v) if len(v) <= inline_max else 0) for k, v in entries]
+    runs = _groups(costs, limit)
+    level, height = [], 0
+    for a, b in runs:
+        keys = [k for k, _ in entries[a:b]]
+        prefix = _common(keys[0], keys[-1]) if len(runs) > 1 else 0
+        offset, length = put(_leaf(entries[a:b], prefix, inline_max, data_file, offsets),
+                             _BTREE_NODE_MAGIC)
+        level.append(dict(first=keys[0], last=keys[-1], prefix=keys[0][:prefix], offset=offset,
+                          length=length, num_keys=b - a, num_tree_bytes=length,
+                          num_indirect_value_bytes=sum(len(v) for _, v in entries[a:b]
+                                                       if len(v) > inline_max)))
+    while len(level) > 1:
+        height += 1
+        runs = _groups([len(c["first"]) + 80 for c in level], limit)
+        upper = []
+        for a, b in runs:
+            kids = level[a:b]
+            prefix = _common(kids[0]["first"], kids[-1]["last"]) if len(runs) > 1 else 0
+            offset, length = put(_interior(height, kids, prefix, data_file), _BTREE_NODE_MAGIC)
+            upper.append(dict(first=kids[0]["first"], last=kids[-1]["last"],
+                              prefix=kids[0]["first"][:prefix], offset=offset, length=length,
+                              **{k: sum(c[k] for c in kids) + (length if k == "num_tree_bytes"
+                                                                else 0)
+                                 for k in ("num_keys", "num_tree_bytes",
+                                           "num_indirect_value_bytes")}))
+        level = upper
+    (root,) = level
+
+    manifest = b"".join([
+        os.urandom(16), _varint(0), _varint(inline_max), _varint(limit),
+        bytes([CONFIG["version_tree_arity_log2"]]),
+        _varint(1) + CONFIG["compression"]["level"].to_bytes(4, "little", signed=True),
+        _file_table([data_file]),
+        # the one version: generation 1, its root, its statistics, the time
+        _varint(1), _varint(1), bytes([height]), _varint(0), _varint(root["offset"]),
+        _varint(root["length"]), _varint(root["num_keys"]), _varint(root["num_tree_bytes"]),
+        _varint(indirect), time.time_ns().to_bytes(8, "little"),
+        _varint(0)])  # no version-tree node
+    if os.path.exists(os.path.join(path, _MANIFEST)):
+        raise OcdbtError(f"{path} already holds a store")
+    os.makedirs(os.path.join(path, "d"), exist_ok=True)
+    with open(os.path.join(path, data_file), "wb") as f:
+        f.write(blob)
+    with open(os.path.join(path, _MANIFEST), "wb") as f:
+        f.write(_encode(manifest, _MANIFEST_MAGIC))

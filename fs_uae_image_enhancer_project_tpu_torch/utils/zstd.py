@@ -24,6 +24,11 @@ the literals, most of a checkpoint's bytes, cost no Python work each. No
 torch, no codec library.
 
 ``decompress(data)`` decodes every frame in ``data`` and joins the results.
+``compress(data)`` writes the inverse the JAX package's checkpoints can be
+read back from: one frame of raw blocks, each at most 128 KiB (the format's
+``Block_Maximum_Size``), its header giving the content size and a 128 KiB
+window, no content checksum. No entropy coder: the bytes are stored as they
+are, and any zstd decoder reads them.
 """
 from __future__ import annotations
 
@@ -31,11 +36,14 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["ZstdError", "decompress", "xxh64"]
+__all__ = ["ZstdError", "compress", "decompress", "xxh64"]
 
 _MAGIC = 0xFD2FB528
 _SKIPPABLE_MASK, _SKIPPABLE = 0xFFFFFFF0, 0x184D2A50
 _BLOCK_MAX = 1 << 17
+# the Window_Descriptor of a 2^17-byte window (exponent 7, mantissa 0): a
+# block may then be as large as _BLOCK_MAX
+_WINDOW_128K = 7 << 3
 
 
 class ZstdError(ValueError):
@@ -606,4 +614,19 @@ def decompress(data: bytes) -> bytes:
                 raise ZstdError("truncated skippable frame")
         else:
             raise ZstdError(f"not a zstd frame (magic {magic:#010x})")
+    return b"".join(parts)
+
+
+def compress(data: bytes) -> bytes:
+    """``data`` as one zstd frame of raw blocks of at most 128 KiB, with
+    its content size in the header and no checksum."""
+    view = memoryview(data).cast("B")
+    n = len(view)
+    fcs_flag, fcs_size = (2, 4) if n < 1 << 32 else (3, 8)
+    parts = [_MAGIC.to_bytes(4, "little"), bytes([fcs_flag << 6, _WINDOW_128K]),
+             n.to_bytes(fcs_size, "little")]
+    for start in range(0, n, _BLOCK_MAX) or (0,):  # an empty input: one empty block
+        size = min(_BLOCK_MAX, n - start)
+        last = start + size == n
+        parts += [(size << 3 | last).to_bytes(3, "little"), view[start:start + size]]
     return b"".join(parts)

@@ -163,8 +163,8 @@ def test_jax_save_checkpoint_is_read(name, tmp_path):
         _assert_bit_equal(whole["buffers"], jax.tree.map(np.asarray, state.buffers))
     else:
         assert whole["buffers"] == {}
-    # optax's chain: (clip's empty state, adam's (count, mu, nu), the
-    # schedule's count); every count an int32 scalar
+    # optax's chain: (add_decayed_weights' empty state, adam's (count, mu,
+    # nu), the schedule's count); every count an int32 scalar
     counts = [(k, v) for k, v in _flat(whole["opt_state"]) if k[-1] == "count"]
     assert counts and all(v.dtype == np.int32 and v.shape == () for _, v in counts)
     want = JT.load_params(path, jax_model(name).init(jax.random.key(0)))

@@ -147,13 +147,15 @@ def test_every_root_recipe_has_a_case():
 
 
 # chip_smoke.py's recipes record as the phase printed it on an NVIDIA H100
-# 80GB HBM3 at 700 W, less its step seconds
+# 80GB HBM3 at 700 W, less its step seconds; the best checkpoint's listing
+# is the orbax directory the trainer writes since slice 15
 CARD_RECORD = {
     "groundtruth": {"img_0.png": [1410, 1080], "img_1.png": [1410, 1080]},
     "generate": {"files": 80, "targets": 16, "styled": 64, "crop_sizes": [[376, 288]],
                  "summary": {"expected": 80, "present": 80, "generated_this_run": 80,
                              "missing": 0, "stopped": False, "k3_launches": 8}},
-    "train": {"csv_epochs": [1], "best_checkpoint": ["state.pt"],
+    "train": {"csv_epochs": [1], "best_checkpoint": ["_CHECKPOINT_METADATA", "_METADATA",
+                                                     "array_metadatas", "d", "manifest.ocdbt"],
               "metrics": [{"epoch": 1, "train_loss": 0.19873902201652527,
                            "val_loss": 0.17940348386764526, "lr": 0.00051952,
                            "seconds": 3.61, "val_k1_launches": 1}]},
@@ -178,6 +180,7 @@ BROKEN = {
     "no_csv_epoch": (("train", "csv_epochs"), lambda v: []),
     "nan_loss": (("train", "metrics"), lambda v: [dict(v[0], val_loss=float("nan"))]),
     "no_best_checkpoint": (("train", "best_checkpoint"), lambda v: []),
+    "best_checkpoint_not_orbax": (("train", "best_checkpoint"), lambda v: ["state.pt"]),
     "k1_not_in_validation": (("train", "metrics"), lambda v: [dict(v[0], val_k1_launches=0)]),
     "server_exit_nonzero": (("serve", "server_rc"), lambda v: 1),
     "replay_frames_short": (("serve", "replay", "frames"), lambda v: v - 1),

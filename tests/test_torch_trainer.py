@@ -37,6 +37,10 @@ from fs_uae_image_enhancer_project_tpu_torch.parallel.train_step import (
 )
 from fs_uae_image_enhancer_project_tpu_torch.train import cli
 from fs_uae_image_enhancer_project_tpu_torch.train import trainer as T
+from fs_uae_image_enhancer_project_tpu_torch.train.orbax_reader import (
+    is_orbax_checkpoint,
+    read_orbax,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -98,7 +102,8 @@ def test_checkpoint_roundtrip(tmp_path):
     state = state._replace(step=7)
     path = str(tmp_path / "ckpt")
     T.save_checkpoint(path, state)
-    assert os.listdir(path) == [T.CHECKPOINT_FILE]
+    assert sorted(os.listdir(path)) == ["_CHECKPOINT_METADATA", "_METADATA", "array_metadatas",
+                                        "d", "manifest.ocdbt"]
     T.save_checkpoint(path, state)  # overwrites in place
     restored = T.load_checkpoint(path, _state("conv5", seed=1, steps_per_epoch=2))
     assert restored.step == 7
@@ -156,12 +161,11 @@ def test_trainer_end_to_end_and_resume_with_the_bn_model(tiny_dataset, tmp_path)
     best_val, best_epoch, _ = T.Trainer(m, _cfg(ckpt_dir)).train(train_ds, val_ds)
     assert np.isfinite(best_val) and best_epoch >= 1
     stats = os.path.join(ckpt_dir, "training_stats_conv5.csv")
-    assert os.path.isfile(os.path.join(ckpt_dir, "checkpoint_best_conv5", T.CHECKPOINT_FILE))
-    assert os.path.isfile(os.path.join(ckpt_dir, "checkpoint_epoch_2_conv5", T.CHECKPOINT_FILE))
-    saved = torch.load(os.path.join(ckpt_dir, "checkpoint_epoch_2_conv5", T.CHECKPOINT_FILE),
-                       weights_only=True)
+    assert is_orbax_checkpoint(os.path.join(ckpt_dir, "checkpoint_best_conv5"))
+    assert is_orbax_checkpoint(os.path.join(ckpt_dir, "checkpoint_epoch_2_conv5"))
+    saved = read_orbax(os.path.join(ckpt_dir, "checkpoint_epoch_2_conv5"))
     assert saved["step"] == 4 and set(saved["buffers"]) == {f"bn{i}" for i in range(1, 6)}
-    assert not torch.equal(saved["buffers"]["bn1"]["var"], torch.ones(32))  # the stats moved
+    assert not np.array_equal(saved["buffers"]["bn1"]["var"], np.ones(32))  # the stats moved
 
     # resume: the epochs continue from the CSV, none is trained twice
     T.Trainer(m, _cfg(ckpt_dir, num_epochs=3)).train(train_ds, val_ds)
@@ -242,7 +246,7 @@ def test_cli_trains_a_tiny_tree_on_the_cpu(tiny_dataset, tmp_path, capsys):
     args = _cli_args(tiny_dataset, ckpt_dir, "--samples_dir", str(samples), "--device", "cpu")
     assert cli.main(args + ["--epochs", "2"]) == 0
     assert "Best validation loss" in capsys.readouterr().out
-    assert os.path.isfile(os.path.join(ckpt_dir, "checkpoint_best_pix_shuffle", T.CHECKPOINT_FILE))
+    assert is_orbax_checkpoint(os.path.join(ckpt_dir, "checkpoint_best_pix_shuffle"))
     assert os.path.isfile(os.path.join(ckpt_dir, "predicted", "s0.png"))
     assert cli.main(args + ["--epochs", "3"]) == 0  # resume
     rows = _rows(os.path.join(ckpt_dir, "training_stats_pix_shuffle.csv"))
@@ -316,25 +320,27 @@ def test_cli_refuses_sharding_and_a_missing_card(devices8, tiny_dataset, tmp_pat
     as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     want_leaves = jax.tree_util.tree_leaves(as_np(jax_saved.params))
     want_bufs = jax.tree_util.tree_leaves(as_np(jax_saved.buffers))
-    want_moments = {"exp_avg": jax.tree_util.tree_leaves(as_np(adam.mu)),
-                    "exp_avg_sq": jax.tree_util.tree_leaves(as_np(adam.nu))}
+    want_moments = {"mu": jax.tree_util.tree_leaves(as_np(adam.mu)),
+                    "nu": jax.tree_util.tree_leaves(as_np(adam.nu))}
     for run in ("dp2", "dp2sp2"):
         row = _rows(str(tmp_path / run / "training_stats_conv3.csv"))[2]
         assert row[0] == want_row[0] == "1"
         for col in (1, 2):  # the train and validation losses
             assert float(row[col]) == pytest.approx(float(want_row[col]), rel=1e-5), (run, col)
-        saved = torch.load(str(tmp_path / run / "checkpoint_best_conv3" / T.CHECKPOINT_FILE),
-                           weights_only=True)
+        saved = read_orbax(str(tmp_path / run / "checkpoint_best_conv3"),
+                           subtrees=("step", "params", "buffers", "opt_state"))
         got = leaves(saved["params"])
         assert len(got) == len(want_leaves)
         for g, w in zip(got, want_leaves):  # both in sorted key order
-            np.testing.assert_allclose(g.numpy().reshape(w.shape), w, atol=1e-5, rtol=0)
+            np.testing.assert_allclose(g.reshape(w.shape), w, atol=1e-5, rtol=0)
         for g, w in zip(leaves(saved["buffers"]), want_bufs):
-            np.testing.assert_allclose(g.numpy().reshape(w.shape), w, atol=1e-5, rtol=0)
-        state = saved["optimizer"]["state"]
+            np.testing.assert_allclose(g.reshape(w.shape), w, atol=1e-5, rtol=0)
+        adam_saved = saved["opt_state"][1]
         for k, want in want_moments.items():
-            for i, w in enumerate(want):
-                np.testing.assert_allclose(state[i][k].numpy().reshape(w.shape), w, rtol=1e-4,
+            got = leaves(adam_saved[k])
+            assert len(got) == len(want)
+            for i, (g, w) in enumerate(zip(got, want)):
+                np.testing.assert_allclose(g.reshape(w.shape), w, rtol=1e-4,
                                            atol=1e-5 * np.abs(w).max(), err_msg=f"{run} {k} {i}")
     capsys.readouterr()
 
