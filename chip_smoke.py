@@ -216,7 +216,25 @@ Phases, each printing one JSON line with its wall time:
               (K1 twice); then model_pix_shuffle_trained/
               checkpoint_best_epoch73 read whole, written again by the port
               and read back, leaf for leaf
-22. train_drivers  slice 12's training and NAS drivers (scripts/), each
+22. wheel     slice 16: the port as a user installs it. The repo's wheel
+              built by pip wheel --no-deps --no-build-isolation --no-index
+              from a copy of pyproject.toml, README.md and the two packages,
+              installed with pip
+              install --no-deps --target into a temporary directory; its
+              bin/fse-torch-sidecar started as a child with PYTHONPATH that
+              directory alone, a working directory outside the repo and
+              XDG_CACHE_HOME a temporary directory, on the shipped
+              pix_shuffle graph at depth 2 with --stats; its warm-up frame
+              builds K1-K4 cold from the wheel's kernel sources into that
+              cache. 16 seeded 576x752 frames through the port's
+              SidecarClient, each byte-equal to this process's
+              enhance_from_onnx; from the server's stats, K1 once a frame and
+              its warm-up, its fused_stack module under the install, its
+              library under the cache with the checkout's hash directory,
+              built by it, and its build seconds, warm-up (first) frame and
+              p50; the wheel's and the install's seconds; nothing added to
+              the checkout
+23. train_drivers  slice 12's training and NAS drivers (scripts/), each
               through its main on the card on the datagen phase's tree,
               outputs in temporary directories, K1's counter from 0 for
               each: the JAX package's random VGG basis drawn cold
@@ -237,11 +255,11 @@ Phases, each printing one JSON line with its wall time:
               hit); convert_vgg16_weights (exit 1 naming torchvision); the
               retention probe at 8 MB x 50 (GB retained per GB sent). The
               trainers' pid file holds this process's pid and is removed
-23. kernel_bench  the two kernel benches (slice 3's main path), about half
+24. kernel_bench  the two kernel benches (slice 3's main path), about half
               a second a variant, counters from 0: bench_fused_stack (eager
               bf16, K1, K2 on a 576x752 frame) and bench_lane_packing (K4's
               12 cases at grid 64)
-24. timing    K1's and K2's device time a call (median, min and max of 3
+25. timing    K1's and K2's device time a call (median, min and max of 3
               repeats of 50 back-to-back calls) and CUDA-event medians of
               K1, K2, their plain versions, cuDNN, the enhance (and its
               device time a frame); of K4 at the 12 cases, grid 64 (each
@@ -260,7 +278,7 @@ Phases, each printing one JSON line with its wall time:
               trees, each in child processes of its own, parent, this tree,
               this tree, parent (scripts/turns_k3_k4.py), on the datagen
               phase's crops and k-means palettes
-25. kernels   every kernel launched, held against its plain version
+26. kernels   every kernel launched, held against its plain version
 
 Then the card's nvidia-smi line and the kernels line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -394,6 +412,10 @@ ORBAX_RESUME_SAMPLES, ORBAX_RESUME_VAL = 4, 2
 # slice 15: the orbax_write phase's micro-batches a step (two steps before
 # the write, one after the restore) and the rewrites over the first write
 ORBAX_WRITE_ACCUM, ORBAX_WRITE_REWRITES = 2, 2
+# slice 16: the wheel phase's two packages and the frames sent to the
+# installed server
+PACKAGES = ("fs_uae_image_enhancer_project_tpu", "fs_uae_image_enhancer_project_tpu_torch")
+WHEEL_FRAMES = 16
 
 # a child that imports only the port: load the artifact, enhance the frames,
 # save them and K1's launches
@@ -2723,6 +2745,167 @@ def check_orbax_write(rec: dict, dev) -> None:
           f"epoch73 written again differs: {e['differing']}")
 
 
+def _pip(args: list, cache: str) -> None:
+    """``python -m pip`` with no index (nothing is fetched, and pip skips its
+    version check) and no cache; pip's other caches go to ``cache``."""
+    r = subprocess.run([sys.executable, "-m", "pip", *args, "--no-index", "--no-cache-dir",
+                        "--disable-pip-version-check"], capture_output=True, text=True,
+                       timeout=300, env=dict(os.environ, XDG_CACHE_HOME=cache))
+    check(r.returncode == 0, f"pip {args[0]} exited {r.returncode}: {r.stderr[-3000:]}")
+
+
+def build_wheel(out: str, cache: str, root: str = REPO) -> str:
+    """The repo's wheel, built by ``pip wheel --no-deps --no-build-isolation``
+    in ``out`` from a copy of ``pyproject.toml``, ``README.md`` and the two
+    packages without ``__pycache__``, so that the build's ``build/`` and
+    ``*.egg-info`` land in the copy, not in ``root``. Returns its path."""
+    src = os.path.join(out, "src")
+    os.makedirs(src)
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy2(os.path.join(root, name), src)
+    for pkg in PACKAGES:
+        shutil.copytree(os.path.join(root, pkg), os.path.join(src, pkg),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    _pip(["wheel", "--no-deps", "--no-build-isolation", "-w", os.path.join(out, "dist"), src],
+         cache)
+    (whl,) = glob.glob(os.path.join(out, "dist", "*.whl"))
+    return whl
+
+
+def install_wheel(whl: str, target: str, cache: str) -> None:
+    """``pip install --no-deps --target``: the wheel's declared dependencies
+    are the JAX package's, which the port does not import."""
+    _pip(["install", "--no-deps", "--target", target, whl], cache)
+
+
+def serve_installed(target: str, cache: str, work: str, frames, dev,
+                    depth: int = SERVE_DEPTH) -> dict:
+    """The installed ``bin/fse-torch-sidecar`` as a child process, with
+    ``PYTHONPATH`` the install ``target`` alone, ``XDG_CACHE_HOME`` at
+    ``cache`` and ``work`` its working directory (the checkout off its
+    path), on the shipped pix_shuffle graph at ``depth`` with ``--stats``:
+    ``frames`` (n, h, w, 4) sent through the port's ``SidecarClient``, then
+    a shutdown. Returns the responses, the server's stats, its exit code and
+    the seconds to its ready line (imports, graph and warm-up frame)."""
+    from fs_uae_image_enhancer_project_tpu_torch.runtime.sidecar import SidecarClient
+    from fs_uae_image_enhancer_project_tpu_torch.utils.subproc import wait_for_line
+
+    on_cpu = () if dev.type == "cuda" else ("--device", "cpu")
+    sock, stats = os.path.join(work, "fse.sock"), os.path.join(work, "stats.json")
+    env = dict(os.environ, PYTHONPATH=target, XDG_CACHE_HOME=cache)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [os.path.join(target, "bin", "fse-torch-sidecar"), "--socket", sock, "--weights", ONNX,
+         "--depth", str(depth), "--height", str(frames.shape[1]), "--width",
+         str(frames.shape[2]), "--stats", stats, *on_cpu],
+        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        ready, lines = wait_for_line(proc, "SIDECAR_READY", timeout=300)
+        check(ready, f"the installed fse-torch-sidecar did not come up: {lines[-20:]}")
+        ready_s = time.perf_counter() - t0
+        client = SidecarClient(sock, timeout=60.0)
+        try:
+            got = [out for out in map(client.submit, frames) if out is not None]
+            got += client.drain()
+            client.shutdown_server()
+        finally:
+            client.close()
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(stats) as f:
+        served = json.load(f)
+    return dict(responses=got, stats=served, rc=rc, ready_s=ready_s)
+
+
+def wheel_phase(dev, frame_hw=(576, 752), n_frames: int = WHEEL_FRAMES) -> dict:
+    """Slice 16: a user's installed port on ``dev``. The repo's wheel built
+    from a copy of the tree (``build_wheel``), installed with
+    ``pip install --no-deps --target`` into a temporary directory, and
+    its ``fse-torch-sidecar`` served from there (``serve_installed``) with a
+    temporary ``XDG_CACHE_HOME``: on a card its first frame builds K1-K4
+    from the wheel's kernel sources into that cache. ``n_frames`` seeded
+    frames against the checkout's ``enhance_from_onnx`` in this process; the
+    server's K1 launches (a new process: its counter starts at 0 and is read
+    from its stats at exit), its ``fused_stack`` module, its kernel library
+    (path, built, seconds), its warm-up frame (the first, the build
+    included) and its p50. The wheel's and the install's seconds, and the
+    repo's top-level entries that the phase added (none)."""
+    import numpy as np
+
+    from fs_uae_image_enhancer_project_tpu_torch.export.enhance import enhance_from_onnx
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import build
+
+    frames = np.random.default_rng(16).integers(0, 256, (n_frames, *frame_hw, 4), dtype=np.uint8)
+    enhance = enhance_from_onnx(ONNX, device=dev)
+    direct = [enhance(frames[i:i + 1]).cpu().numpy()[0] for i in range(n_frames)]
+    before = sorted(os.listdir(REPO))
+    rec: dict = dict(frames=n_frames, frame_hw=list(frame_hw), depth=SERVE_DEPTH,
+                     checkout_library=build.library_path())
+    with tempfile.TemporaryDirectory() as tmp:
+        target, cache, work = (os.path.join(tmp, d) for d in ("target", "cache", "work"))
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        whl = build_wheel(os.path.join(tmp, "wheel"), cache)
+        rec["wheel_s"] = time.perf_counter() - t0
+        rec["wheel_bytes"] = os.path.getsize(whl)
+        t0 = time.perf_counter()
+        install_wheel(whl, target, cache)
+        rec["install_s"] = time.perf_counter() - t0
+        served = serve_installed(target, cache, work, frames, dev)
+        st = served["stats"]
+        lib = st["kernel_library"]
+        rec.update(
+            target=target, cache=cache, server_rc=served["rc"], ready_s=served["ready_s"],
+            responses=len(served["responses"]),
+            equal=[bool(np.array_equal(g, d)) for g, d in zip(served["responses"], direct)],
+            served_frames=st["frames"], k1_launches=st["k1_launches"],
+            first_frame_ms=st["warmup_ms"], p50_ms=st["p50_ms"], p90_ms=st["p90_ms"],
+            module=st["fused_stack_module"], library=lib["path"], built=lib["built"],
+            build_s=lib["seconds"],
+            cache_files=sorted(os.path.relpath(os.path.join(r, f), cache)
+                               for r, _d, fs_ in os.walk(cache) for f in fs_))
+    rec["repo_added"] = sorted(set(os.listdir(REPO)) - set(before))
+    return rec
+
+
+def _under(path: str, root: str) -> bool:
+    root = os.path.abspath(root)
+    return os.path.commonpath([os.path.abspath(path), root]) == root
+
+
+def check_wheel(rec: dict, dev) -> None:
+    """The wheel phase's checks; K1 launches, and the library is built, only
+    on a card."""
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import build
+
+    on_card = dev.type == "cuda"
+    check(rec["server_rc"] == 0, f"the installed server exited {rec['server_rc']}")
+    check(rec["responses"] == rec["served_frames"] == rec["frames"] == len(rec["equal"])
+          and all(rec["equal"]),
+          f"the installed server's responses differ from the checkout's enhance: {rec['equal']}")
+    check(rec["k1_launches"] == (rec["frames"] + 1 if on_card else 0),
+          f"the installed server launched K1 {rec['k1_launches']} times for "
+          f"{rec['frames']} frames and its warm-up")
+    check(_under(rec["module"], rec["target"]),
+          f"the server's fused_stack came from {rec['module']}, not the install")
+    check(os.path.dirname(os.path.dirname(rec["library"]))
+          == os.path.join(rec["cache"], build.PACKAGE, "torch_kernels"),
+          f"the server's kernel library {rec['library']} is not in the temporary cache")
+    check(os.path.basename(os.path.dirname(rec["library"]))
+          == os.path.basename(os.path.dirname(rec["checkout_library"])),
+          f"the install's kernel hash differs from the checkout's: {rec['library']} "
+          f"against {rec['checkout_library']}")
+    check(rec["built"] is (True if on_card else None)
+          and (not on_card or rec["build_s"] > 0),
+          f"the installed server's library: built {rec['built']} in {rec['build_s']} s")
+    check(not on_card or os.path.relpath(rec["library"], rec["cache"]) in rec["cache_files"],
+          f"{rec['library']} is not among the cache's files {rec['cache_files']}")
+    check(not rec["repo_added"], f"the phase left {rec['repo_added']} in the checkout")
+
+
 def timed_steps(module, name: str, dev, record: list):
     """``module.<name>`` (a train-step factory) wrapped so that every step it
     builds is timed on the host's clock, synchronised at both ends, into
@@ -3550,7 +3733,17 @@ def main(argv=None) -> int:
     emit("orbax_write", t0, **ow, nvidia_smi=smi)
     check_orbax_write(ow, dev)
 
-    # 22. train_drivers: slice 12's training and NAS drivers on the datagen
+    # 22. wheel: slice 16, the port installed from the repo's wheel and
+    # served by its fse-torch-sidecar, which builds K1-K4 from the wheel's
+    # sources into a temporary user cache (a child process: its counters
+    # start at 0 and are read from its stats at its exit)
+    _phase = "wheel"
+    t0 = time.perf_counter()
+    wh = wheel_phase(dev)
+    emit("wheel", t0, **wh, nvidia_smi=smi)
+    check_wheel(wh, dev)
+
+    # 23. train_drivers: slice 12's training and NAS drivers on the datagen
     # phase's tree, K1's counter from 0 for each
     _phase = "train_drivers"
     t0 = time.perf_counter()
@@ -3559,7 +3752,7 @@ def main(argv=None) -> int:
     emit("train_drivers", t0, **tdrv, nvidia_smi=smi)
     check_train_drivers(tdrv, dev)
 
-    # 23. kernel_bench: slice 3's main path, every counter from 0
+    # 24. kernel_bench: slice 3's main path, every counter from 0
     _phase = "kernel_bench"
     t0 = time.perf_counter()
     kb = kernel_bench(dev)
@@ -3569,7 +3762,7 @@ def main(argv=None) -> int:
     for rec in kb["fused"]:
         check(math.isfinite(rec["max_err"]), f"bench_fused_stack {rec['name']}: {rec}")
 
-    # 24. timing at the main paths' shapes
+    # 25. timing at the main paths' shapes
     _phase = "timing"
     t0 = time.perf_counter()
     x = (torch.from_numpy(frames[0, :, imp.crop_left:, :3]).to(dev).float() / 255.0)
@@ -3643,7 +3836,7 @@ def main(argv=None) -> int:
              summary=turns["summary"], nvidia_smi=smi)
         check(turns["ok"], "a kernel of the turns differs from its plain version")
 
-    # 25. kernels
+    # 26. kernels
     _phase = "kernels"
     kernels = [dict(
         name="fused_stack", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
@@ -3657,6 +3850,7 @@ def main(argv=None) -> int:
         int8_study_launches=i8["k1_launches"], drivers_launches=drv_launches["fused_stack"],
         orbax_launches=orb["launches"]["fused_stack"],
         orbax_write_launches=ow["launches"]["fused_stack"],
+        wheel_launches=wh["k1_launches"],
         recipes_launches=rcp["launches"]["fused_stack"],
         train_drivers_launches={k: r["k1_launches"] for k, r in tdrv.items()
                                 if isinstance(r, dict) and "k1_launches" in r},

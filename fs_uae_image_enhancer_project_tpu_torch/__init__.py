@@ -66,6 +66,10 @@ What is ported, by slice:
    JAX package restores, resumes and exports a run trained on the card; and
    the port's console scripts (``fse-torch-*`` in ``pyproject.toml``, one for
    each of the JAX package's).
+15. an installed port: the wheel carries the kernel sources
+   (``ops/cuda/csrc``) as package data, and an install builds its kernels
+   into the user's cache (``ops.cuda.build.build_root``), so the installed
+   ``fse-torch-sidecar`` serves on the card.
 
 The port now does all that the JAX package does. Two JAX modules keep no
 counterpart: ``utils/compile_cache.py`` (the hash-keyed nvcc cache of

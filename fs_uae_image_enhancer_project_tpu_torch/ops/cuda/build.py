@@ -3,10 +3,16 @@
 The ``.cu`` sources under ``csrc/`` have a plain C interface and include no
 PyTorch header. Each is compiled by its own ``nvcc`` process, all started
 together, and one more ``nvcc`` call links the objects: seconds in all. The
-library goes to ``build/torch_kernels/<content-hash>/libfse_kernels.so`` under
-the repo root, built at first use. The build writes to temporary names and
-``os.replace``-s the library into place, so a build that is cut off leaves
-neither a half-written library nor a lock. Any failure raises.
+library goes to ``<BUILD_ROOT>/<content-hash>/libfse_kernels.so``, built at
+first use: ``BUILD_ROOT`` is ``build/torch_kernels`` under the repo root in a
+checkout (a root that holds ``pyproject.toml``), and in an installed copy,
+whose ``csrc`` comes from the wheel's package data,
+``${XDG_CACHE_HOME:-~/.cache}/fs_uae_image_enhancer_project_tpu_torch/
+torch_kernels``. The hash covers the flags and the sources' names and bytes,
+so a checkout and an install of the same tree name the same directory. The
+build writes to temporary names and ``os.replace``-s the library into place,
+so a build that is cut off leaves neither a half-written library nor a lock.
+Any failure raises.
 
 ``load_library(csrc=..., defines=...)`` builds another source tree or the
 same one with preprocessor settings (a tile sweep, or a parent commit's
@@ -28,7 +34,20 @@ from typing import Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
-BUILD_ROOT = os.path.join(REPO_ROOT, "build", "torch_kernels")
+PACKAGE = "fs_uae_image_enhancer_project_tpu_torch"
+
+
+def build_root(repo_root: str = REPO_ROOT) -> str:
+    """Where the kernels build: the checkout's ``build/torch_kernels``, or
+    the user's cache when ``repo_root`` is no checkout (an install, where
+    it is ``site-packages`` or a ``--target`` directory)."""
+    if os.path.isfile(os.path.join(repo_root, "pyproject.toml")):
+        return os.path.join(repo_root, "build", "torch_kernels")
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, PACKAGE, "torch_kernels")
+
+
+BUILD_ROOT = build_root()
 LIB_NAME = "libfse_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -98,10 +117,15 @@ def _run(cmds, deadline: float) -> str:
 def build(out: str, csrc: str = CSRC, defines=()) -> dict:
     """Compile every ``.cu`` of ``csrc`` into ``out``: one nvcc per source, in
     parallel, then one link. Returns ``dict(seconds=..., built=True)``."""
+    sources = [s for s in _sources(csrc) if s.endswith(".cu")]
+    if not sources:
+        raise FileNotFoundError(
+            f"no CUDA kernel sources (*.cu) in {csrc}: the package was installed without "
+            f"its kernel sources; install it from a wheel built with the package data "
+            f"that pyproject.toml names, or run it from a checkout")
     nvcc = _nvcc()
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tag = f"tmp{os.getpid()}"
-    sources = [s for s in _sources(csrc) if s.endswith(".cu")]
     objs = [f"{out}.{os.path.basename(s)}.{tag}.o" for s in sources]
     tmp = f"{out}.{tag}"
     t0 = time.perf_counter()
@@ -153,7 +177,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def load_library(csrc: Optional[str] = None, defines=()) -> ctypes.CDLL:
-    """The kernels' library, built on first use in this checkout: from this
+    """The kernels' library, built on first use under ``BUILD_ROOT``: from this
     package's ``csrc`` by default or from the ``csrc`` given, with ``-D``
     for each of ``defines`` (strings such as ``"FSE_TILE_W=16"``)."""
     key = (os.path.abspath(csrc or CSRC), tuple(defines))

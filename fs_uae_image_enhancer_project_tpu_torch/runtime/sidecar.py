@@ -114,6 +114,7 @@ class SidecarServer:
         self._lat_max = 0.0
         self._hist_edges = [0.5 * (2 ** (i / 2)) for i in range(24)]
         self._hist_counts = [0] * (len(self._hist_edges) + 1)
+        self.warmup_ms: Optional[float] = None
 
     def _log(self, msg: str) -> None:
         if self.verbose:
@@ -127,7 +128,9 @@ class SidecarServer:
         whose length differs from the advertised frame_bytes, silently
         desynchronizing every client's fixed-size reads."""
         frame = np.zeros((1, self.h, self.w, 4), np.uint8)
+        t0 = time.perf_counter()
         out = self.fn(torch.from_numpy(frame)).cpu().numpy()
+        self.warmup_ms = (time.perf_counter() - t0) * 1e3
         if out.shape != (1, self.h, self.w, 4) or out.dtype != np.uint8:
             raise ValueError(
                 f"enhance_fn must map (1,{self.h},{self.w},4) uint8 -> same; "
@@ -392,10 +395,19 @@ class SidecarServer:
             "counts": counts,
         }
         # the fused-stack kernel's launches in this process, warm-up
-        # included: a load generator in another process reads them here
+        # included: a load generator in another process reads them here,
+        # with where the kernels came from (the module, and the library:
+        # its path, whether this process built it and in how many seconds;
+        # the path where it would be where no kernel was loaded)
+        from ..ops.cuda import build
         from ..ops.cuda import fused_stack as fs
 
         stats["k1_launches"] = fs.fused_stack.launches
+        stats["warmup_ms"] = self.warmup_ms
+        stats["fused_stack_module"] = fs.__file__
+        stats["kernel_library"] = dict(path=build.build_info.get("path", build.library_path()),
+                                       built=build.build_info.get("built"),
+                                       seconds=build.build_info.get("seconds"))
         with open(self.stats_path, "w") as f:
             json.dump(stats, f, indent=1)
         self._log(f"wrote latency stats to {self.stats_path}")
