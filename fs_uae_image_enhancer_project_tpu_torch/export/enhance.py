@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import CROP_LEFT, resolve_device
+from ..utils.profiler import span
 
 
 def make_enhance_fn(
@@ -48,24 +49,36 @@ def make_enhance_fn(
 
     @torch.no_grad()
     def enhance(frames) -> torch.Tensor:
-        frames = torch.as_tensor(frames).to(dev, non_blocking=True)
-        if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 4:
-            raise ValueError(
-                f"enhance expects uint8 RGBA NHWC frames, got {frames.dtype} {tuple(frames.shape)}"
-            )
-        n, h, w, _ = frames.shape
-        x = frames[:, :, crop_left:, :3].float() / 255.0
-        if not srgb_domain:
-            x = x ** srgb_to_linear_exponent
-        y = model_apply(params, x.to(compute_dtype)).float()
-        if not srgb_domain:
-            y = y.clamp(min=0.0) ** linear_to_srgb_exponent
-        y = (y * 255.0).clamp(0.0, 255.0).to(torch.uint8)
-        out = torch.empty((n, h, w, 4), dtype=torch.uint8, device=dev)
-        out[:, :, :crop_left, :3] = 0
-        out[:, :, crop_left:, :3] = y
-        out[..., 3] = 255
-        return out
+        with span("fse.enhance"):
+            frames = torch.as_tensor(frames)
+            if frames.device.type == dev.type:
+                frames = frames.to(dev, non_blocking=True)
+            else:  # a host batch, as the frame server hands it over
+                with span("fse.upload"):
+                    frames = frames.to(dev, non_blocking=True)
+            with span("fse.enhance.prologue"):
+                if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 4:
+                    raise ValueError(
+                        "enhance expects uint8 RGBA NHWC frames, got "
+                        f"{frames.dtype} {tuple(frames.shape)}"
+                    )
+                n, h, w, _ = frames.shape
+                x = frames[:, :, crop_left:, :3].float() / 255.0
+                if not srgb_domain:
+                    x = x ** srgb_to_linear_exponent
+                x = x.to(compute_dtype)
+            with span("fse.enhance.model"):
+                y = model_apply(params, x)
+            with span("fse.enhance.epilogue"):
+                y = y.float()
+                if not srgb_domain:
+                    y = y.clamp(min=0.0) ** linear_to_srgb_exponent
+                y = (y * 255.0).clamp(0.0, 255.0).to(torch.uint8)
+                out = torch.empty((n, h, w, 4), dtype=torch.uint8, device=dev)
+                out[:, :, :crop_left, :3] = 0
+                out[:, :, crop_left:, :3] = y
+                out[..., 3] = 255
+            return out
 
     return enhance
 

@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..utils.profiler import span
 
 
 def backend_for(device) -> str:
@@ -199,8 +200,9 @@ def shard_batch(mesh: Mesh, batch, *, split_height: bool = True):
     array) on its device: the batch over dp, and the height over sp unless
     ``split_height`` is False (then every sp rank holds its dp share whole)."""
     height_axis = 1 if split_height else None
-    return _tree_map(
-        lambda x: _block(torch.as_tensor(x), mesh, 0, height_axis).to(mesh.device), batch)
+    with span("fse.upload"):
+        return _tree_map(
+            lambda x: _block(torch.as_tensor(x), mesh, 0, height_axis).to(mesh.device), batch)
 
 
 def replicate(mesh: Mesh, tree):

@@ -1,7 +1,7 @@
-"""The FPS/latency harness of the port.
+"""The FPS/latency harness of the port, and its spans.
 
 Counterpart of ``fs_uae_image_enhancer_project_tpu/utils/profiler.py``, with
-the same :class:`BenchResult` and entry points:
+the same :class:`BenchResult`:
 
 - :func:`measure_chained`: sustained throughput of ``fn`` whose output feeds
   its next call. On a card, each chunk of calls is closed by a pair of CUDA
@@ -10,13 +10,14 @@ the same :class:`BenchResult` and entry points:
   over all calls gives ms per call. The JAX package closed chunks with a
   probe fetch because its remote TPU's ``block_until_ready`` returned early;
   a local card needs no such workaround.
-- :func:`measure_roundtrip`: per-call latency including a copy of every
-  output to the host.
 - :func:`device_times`: the device's time per call of a short kernel, with
   the calls enqueued behind a sleep kernel so that the host's launch cost
   is not counted (card only).
 - :func:`trace`: a ``torch.profiler`` context that records CUDA activity
   when CUPTI is there.
+- :func:`span`: the program's own marks at its layer boundaries, on the
+  profiler's clock while a profiler records, and next to free otherwise
+  (:data:`SPANS` lists them).
 
 A CPU tensor is timed with ``time.perf_counter`` alone (no events), so the
 tests run on the CPU; those numbers are CPU times, never device times.
@@ -51,6 +52,30 @@ def trace(log_dir: Optional[str] = None, *, cuda: Optional[bool] = None):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+SPANS = (
+    "fse.upload",  # batch upload and readback: a host batch onto the card
+    "fse.enhance",  # enhance step: the whole enhance call
+    "fse.enhance.prologue",  # enhance prologue/epilogue: check, crop, /255, pow, bf16
+    "fse.enhance.model",  # enhance step: the model's launches (K1, or cuDNN and ATen)
+    "fse.enhance.epilogue",  # enhance prologue/epilogue: clamp, pow, x255, uint8, alpha
+)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A mark named ``name`` (one of :data:`SPANS`) over a ``with`` block: a
+    ``torch.profiler.record_function`` while a profiler records in this
+    process, so that it lands in the profiler's trace on the same clock as
+    the device's work, and one shared no-op context otherwise. The check is
+    the guard: a ``record_function`` dispatches two ops even when no
+    profiler runs, which a frame path that opens a few spans a call would
+    pay on every call."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
 @dataclasses.dataclass
 class BenchResult:
     fps: float
@@ -58,8 +83,7 @@ class BenchResult:
     iterations: int
     duration_s: float
     compile_s: float
-    # per-chunk latency percentiles (chunked-chain timing); per-call for
-    # measure_roundtrip
+    # per-chunk latency percentiles (chunked-chain timing)
     p50_ms: float = 0.0
     p90_ms: float = 0.0
     p99_ms: float = 0.0
@@ -186,52 +210,6 @@ def measure_chained(
             break
     total = time.perf_counter() - start
     lat_ms = np.array(lat)
-    return BenchResult(
-        fps=iters / total,
-        ms_per_call=total / iters * 1e3,
-        iterations=iters,
-        duration_s=total,
-        compile_s=compile_s,
-        p50_ms=float(np.percentile(lat_ms, 50)),
-        p90_ms=float(np.percentile(lat_ms, 90)),
-        p99_ms=float(np.percentile(lat_ms, 99)),
-    )
-
-
-def _fetch_all(x) -> None:
-    """Copy every output tensor to the host (the deployment readback)."""
-    for t in _tensors(x):
-        t.cpu()
-
-
-def measure_roundtrip(
-    fn: Callable,
-    *args,
-    warmup: int = 5,
-    duration_s: float = 10.0,
-    max_iters: Optional[int] = None,
-) -> BenchResult:
-    """Per-call latency INCLUDING a copy of every result to the host: the
-    deployment host -> device -> host pattern, timed on the host's clock."""
-    t0 = time.perf_counter()
-    _fetch_all(fn(*args))
-    compile_s = time.perf_counter() - t0
-    for _ in range(max(warmup - 1, 0)):
-        _fetch_all(fn(*args))
-    lat = []
-    iters = 0
-    start = time.perf_counter()
-    deadline = start + duration_s
-    while True:
-        t1 = time.perf_counter()
-        _fetch_all(fn(*args))
-        t2 = time.perf_counter()
-        lat.append(t2 - t1)
-        iters += 1
-        if t2 >= deadline or (max_iters is not None and iters >= max_iters):
-            break
-    total = time.perf_counter() - start
-    lat_ms = np.array(lat) * 1e3
     return BenchResult(
         fps=iters / total,
         ms_per_call=total / iters * 1e3,
