@@ -15,7 +15,11 @@ Phases, each printing one JSON line with its wall time:
 3. k1_parity  the fused-stack kernel (K1) against its plain PyTorch version,
               shipped weights, seeded inputs, half-res 288x376, 288x368 and
               290x375 (neither side a multiple of the 16x14 tile); three
-              frames in one launch against three launches
+              frames in one launch against three launches; then K1's
+              enhance entry (uint8 RGBA in and out, one launch a call) on 8
+              seeded 576x752 frames at 1 and 8 frames a call, byte-equal to
+              K1's bf16 entry with the eager glue, u8_launches counted, and
+              the device ms of both on the same frames
 4. k2_parity  the pair-packed fused-stack kernel (K2) the same way, and
               against K1
 5. k4_parity  the lane-packing kernel (K4, wgmma) against its plain version
@@ -558,6 +562,45 @@ def check_stack(name: str, recs: list) -> None:
         check(rec["mean_abs"] <= K1_MEAN_ABS,
               f"{name} mean abs {rec['mean_abs']} > {K1_MEAN_ABS}")
     check(recs[-1]["batch_equals_frames"], f"{name}: three frames in one launch differ")
+
+
+def fused_enhance_parity(dev, imp, params) -> dict:
+    """K1's enhance entry (``ops/cuda/fused_enhance.py``) against the
+    composition it replaces, K1's bf16 entry with the eager glue, with the
+    shipped graph's contract: 8 seeded 576x752 frames on the card, a frame
+    a call and all 8 in one call. Byte equality, the launches counted
+    (``fused_stack.u8_launches``), and the device ms a call of each
+    (``device_times``: the host's launches hidden behind a sleep)."""
+    import numpy as np
+    import torch
+
+    from fs_uae_image_enhancer_project_tpu_torch.export.enhance import make_enhance_fn
+    from fs_uae_image_enhancer_project_tpu_torch.models import get_model
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_enhance as fe
+    from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
+
+    kw = dict(crop_left=imp.crop_left, srgb_to_linear_exponent=imp.srgb_to_linear_exponent,
+              linear_to_srgb_exponent=imp.linear_to_srgb_exponent, device=dev)
+    fused = fe.make_fused_enhance_fn(params, **kw)
+    composition = make_enhance_fn(get_model("pix_shuffle").apply, params, **kw)
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (8, 576, 752, 4), dtype=np.uint8)).to(dev)
+    before = fs.fused_stack.u8_launches
+    equal = {1: all(torch.equal(fused(frames[i:i + 1]), composition(frames[i:i + 1]))
+                    for i in range(8)),
+             8: bool(torch.equal(fused(frames), composition(frames)))}
+    u8_launches = fs.fused_stack.u8_launches - before
+    rec = dict(fused=isinstance(fused, fe.FusedEnhance), crop_left=imp.crop_left,
+               byte_equal={str(k): bool(v) for k, v in equal.items()},
+               u8_launches=u8_launches, calls=9)
+    for n in (1, 8):
+        batch = frames[:n]
+        f_ms = device_ms(lambda: fused(batch), n=20)
+        c_ms = device_ms(lambda: composition(batch), n=20)
+        rec[f"frames_{n}"] = dict(fused_ms=f_ms["ms"], fused=f_ms, composition_ms=c_ms["ms"],
+                                 composition=c_ms, fused_ms_per_frame=f_ms["ms"] / n,
+                                 composition_ms_per_frame=c_ms["ms"] / n)
+    return rec
 
 
 def k4_inputs(rng, m: int, k: int, n: int, dev):
@@ -3508,10 +3551,15 @@ def main(argv=None) -> int:
     params = params_from_jax(imp.params, device=dev)
     sw = fs.prepare_weights(params, dev)
     k1_recs = stack_parity(dev, fs.fused_stack, fs.fused_stack_plain, sw)
+    k1_u8 = fused_enhance_parity(dev, imp, params)
     emit("k1_parity", t0, cudnn_allow_tf32=False, tol_max_abs=K1_MAX_ABS,
-         tol_mean_abs=K1_MEAN_ABS, shapes=k1_recs)
+         tol_mean_abs=K1_MEAN_ABS, shapes=k1_recs, fused_enhance=k1_u8)
     check_stack("K1", k1_recs)
     k1_err = max(r["max_abs"] for r in k1_recs[:-1])
+    check(k1_u8["fused"] and all(k1_u8["byte_equal"].values()),
+          f"K1's enhance entry differs from the eager composition: {k1_u8['byte_equal']}")
+    check(k1_u8["u8_launches"] == k1_u8["calls"],
+          f"K1's enhance entry launched {k1_u8['u8_launches']} times in {k1_u8['calls']} calls")
 
     # 4. k2_parity: the same for K2, and K2 against K1
     _phase = "k2_parity"

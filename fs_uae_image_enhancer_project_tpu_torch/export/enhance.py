@@ -14,6 +14,12 @@ family of the JAX package. Contract: uint8 ``(N, 576, 752, 4)`` RGBA chunky
   them outside any Pallas kernel;
 - ``pow 1/2.2``, ``x255``, clip, uint8 (truncating, as XLA's convert),
   the crop padded back with black, alpha 255.
+
+:func:`make_enhance_fn` runs the two ends eagerly around ``model_apply``
+(:func:`to_model_input`, :func:`to_uint8`). For the lightweight pix_shuffle
+graph on a card, :func:`enhance_from_onnx` returns
+``ops/cuda/fused_enhance.py``'s enhance instead: one kernel launch a call,
+with both ends folded into K1 through tables made from these two functions.
 """
 from __future__ import annotations
 
@@ -25,6 +31,37 @@ import torch
 
 from .. import CROP_LEFT, resolve_device
 from ..utils.profiler import span
+
+
+def frames_on(frames, dev: torch.device) -> torch.Tensor:
+    """``frames`` (an array or a tensor) as a tensor on ``dev``; the move of
+    a host batch to a card, as the frame server hands one over, is the span
+    ``fse.upload``."""
+    frames = torch.as_tensor(frames)
+    if frames.device.type == dev.type:
+        return frames.to(dev, non_blocking=True)
+    with span("fse.upload"):
+        return frames.to(dev, non_blocking=True)
+
+
+def to_model_input(rgb: torch.Tensor, *, compute_dtype=torch.bfloat16, srgb_domain: bool = False,
+                   exponent: float = 2.2) -> torch.Tensor:
+    """The prologue's arithmetic on uint8 colour values: ``/255``, ``pow``
+    (unless ``srgb_domain``) in fp32, then ``compute_dtype``."""
+    x = rgb.float() / 255.0
+    if not srgb_domain:
+        x = x ** exponent
+    return x.to(compute_dtype)
+
+
+def to_uint8(y: torch.Tensor, *, srgb_domain: bool = False, exponent: float = 1.0 / 2.2
+             ) -> torch.Tensor:
+    """The epilogue's arithmetic on the model's output: fp32, ``clamp(min=0)``
+    and ``pow`` (unless ``srgb_domain``), ``x255``, clip, uint8."""
+    y = y.float()
+    if not srgb_domain:
+        y = y.clamp(min=0.0) ** exponent
+    return (y * 255.0).clamp(0.0, 255.0).to(torch.uint8)
 
 
 def make_enhance_fn(
@@ -50,12 +87,7 @@ def make_enhance_fn(
     @torch.no_grad()
     def enhance(frames) -> torch.Tensor:
         with span("fse.enhance"):
-            frames = torch.as_tensor(frames)
-            if frames.device.type == dev.type:
-                frames = frames.to(dev, non_blocking=True)
-            else:  # a host batch, as the frame server hands it over
-                with span("fse.upload"):
-                    frames = frames.to(dev, non_blocking=True)
+            frames = frames_on(frames, dev)
             with span("fse.enhance.prologue"):
                 if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 4:
                     raise ValueError(
@@ -63,17 +95,12 @@ def make_enhance_fn(
                         f"{frames.dtype} {tuple(frames.shape)}"
                     )
                 n, h, w, _ = frames.shape
-                x = frames[:, :, crop_left:, :3].float() / 255.0
-                if not srgb_domain:
-                    x = x ** srgb_to_linear_exponent
-                x = x.to(compute_dtype)
+                x = to_model_input(frames[:, :, crop_left:, :3], compute_dtype=compute_dtype,
+                                   srgb_domain=srgb_domain, exponent=srgb_to_linear_exponent)
             with span("fse.enhance.model"):
                 y = model_apply(params, x)
             with span("fse.enhance.epilogue"):
-                y = y.float()
-                if not srgb_domain:
-                    y = y.clamp(min=0.0) ** linear_to_srgb_exponent
-                y = (y * 255.0).clamp(0.0, 255.0).to(torch.uint8)
+                y = to_uint8(y, srgb_domain=srgb_domain, exponent=linear_to_srgb_exponent)
                 out = torch.empty((n, h, w, 4), dtype=torch.uint8, device=dev)
                 out[:, :, :crop_left, :3] = 0
                 out[:, :, crop_left:, :3] = y
@@ -128,7 +155,9 @@ def enhance_from_onnx(path: str, *, device=None, **kwargs):
     """Enhance fn with the weights of a shipped ONNX artifact (or one the
     exporter wrote), reproducing that artifact's wrapper contract (crop,
     gamma exponents or the sRGB domain). pix_shuffle takes the lightweight
-    config only; conv6 and the U-Net must match their ``init``'s structure;
+    config only, and its enhance is ``ops/cuda/fused_enhance.py``'s (on a
+    card one launch of K1 a call); conv6 and the U-Net must match their
+    ``init``'s structure;
     the conv stacks take the deployed graphs' semantics (ReLU before the
     residual add, no final sigmoid)."""
     from ..interop import params_from_jax
@@ -162,8 +191,9 @@ def enhance_from_onnx(path: str, *, device=None, **kwargs):
                 f"pix_shuffle {expected}; build the enhance fn with make_enhance_fn "
                 "and the matching config"
             )
-        m = get_model("pix_shuffle")
-        return make_enhance_fn(m.apply, params_from_jax(imp.params, device=device), **contract)
+        from ..ops.cuda.fused_enhance import make_fused_enhance_fn
+
+        return make_fused_enhance_fn(params_from_jax(imp.params, device=device), **contract)
     # the conv stacks' deployed graphs: sRGB domain, ReLU before the add
     from ..models.configs import ConvStackConfig
     from ..models.conv_stack import apply_fused

@@ -164,6 +164,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         if hasattr(lib, name + "_profile"):  # a build with -DFSE_PROFILE
             getattr(lib, name + "_profile").argtypes = [p]
             getattr(lib, name + "_profile").restype = i
+    if hasattr(lib, "fse_fused_stack_u8"):  # not in a library built from an older tree
+        lib.fse_fused_stack_u8.argtypes = [p] * 12 + [i] * 5 + [p]
+        lib.fse_fused_stack_u8.restype = i
+        lib.fse_fused_stack_u8_init.argtypes = [i]
+        lib.fse_fused_stack_u8_init.restype = i
+        lib.fse_fused_stack_u8_info.argtypes = [ctypes.POINTER(i), i]
+        lib.fse_fused_stack_u8_info.restype = i
     lib.fse_lane_packing.argtypes = [p] * 4 + [i] * 11 + [p]
     lib.fse_lane_packing.restype = i
     lib.fse_palette_dither.argtypes = [p] * 4 + [i] * 6 + [ctypes.POINTER(i), i, p]

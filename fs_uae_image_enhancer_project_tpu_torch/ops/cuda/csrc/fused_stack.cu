@@ -22,10 +22,13 @@
 // (fused_stack_common.cuh) stages each layer's weights in shared memory once
 // a CTA and gives each warp up to 4 m-tiles that share every B fragment;
 // scripts/sweep_fused_stack.py times it against the first design, and
-// PERF.md keeps the numbers. Not yet done (later work): fusing the uint8
-// prologue and epilogue of export/enhance.py into the load and the store,
-// wgmma, epilogues that overlap the mma, cross-tile reuse to cut the halo
-// recompute.
+// PERF.md keeps the numbers.
+//
+// This file is K1's bf16 entry, the stack alone (training validation, the
+// exported programs' custom op, the plain comparisons); fused_enhance.cu is
+// its enhance entry, a whole pix_shuffle enhance call in one launch (uint8
+// RGBA in and out). Not yet done (later work): wgmma, epilogues that overlap
+// the mma, cross-tile reuse to cut the halo recompute.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes. The launch goes
 // on the caller's stream, never synchronises and allocates nothing.

@@ -58,7 +58,9 @@
 // about 35%, with all warps in the same phase, so neither overlaps the
 // other. Next: wgmma, and epilogues that overlap the next unit's mma.
 // Layouts. Input and output: (N, H2, W2, 12) bf16, channels last,
-// contiguous. Shared memory: each region is [pixel][channel] bf16 with a
+// contiguous; or, for K1's enhance entry (stack_kernel_u8,
+// fused_enhance.cu), the uint8 RGBA frames themselves, (N, H, W, 4) in and
+// out. Shared memory: each region is [pixel][channel] bf16 with a
 // per-layer channel stride chosen so that the 8 matmul rows of an mma
 // fragment hit distinct banks (rows 1 pixel apart for PK = 1, 2 apart for
 // PK = 2). Weights: per layer, the (K, N) bf16 matrix pre-arranged by the
@@ -74,6 +76,27 @@
 // fast division). The exact libm versions cost 0.3 ms of a 1.03 ms frame
 // (H100, the first design); their error (tanh.approx about 2^-11 relative)
 // is below the bf16 rounding of each stored layer.
+//
+// K1's enhance entry (stack_kernel_u8: PK = 1, the same layers 1-7) folds
+// export/enhance.py's eager prologue and epilogue and the model's unshuffle,
+// shuffle, residual add and relu into its load and store, so that one
+// enhance call is one launch:
+// - load: each half-res pixel of the input region reads its 2x2 full-res
+//   RGBA pixels from column `crop` on (two 8-byte loads) and maps each R, G
+//   and B byte through a 256-entry bf16 table, the prologue's value of that
+//   byte (/255, pow, bf16), into pixel_unshuffle's channel c*4 + ry*2 + rx;
+// - store: layer 7 rounds its 12 outputs to bf16 as the bf16 entry does and
+//   stages them in shared memory (l5's buffer, free by then); then the CTA
+//   writes its full-res pixels: bf16(float(x) + float(y)) of the identity's
+//   table value x and the staged y, mapped by its 16 bits through a 65,536-
+//   entry uint8 table (relu and the epilogue: clamp, pow, x255, clamp,
+//   uint8), alpha 255, and the CTAs of the first tile column write the crop
+//   strip [0, crop) as (0, 0, 0, 255).
+// The wrapper (ops/cuda/fused_enhance.py) makes both tables on the card by
+// running the eager prologue and epilogue over every input value, so the
+// frames equal the eager composition's byte for byte. Its cost is the
+// tables' lookups and the identity's second read (from L2); the bf16
+// entries (K1's stack_kernel<1>, K2's stack_kernel<2>) are unchanged.
 
 #pragma once
 
@@ -167,6 +190,18 @@ template <int PK> struct Smem {
 };
 
 template <int N> struct Int { static constexpr int value = N; };
+
+// The frames of K1's enhance entry: (N, H, W, 4) uint8 RGBA in and out, the
+// prologue's table (256 bf16, by input byte) and the epilogue's (65,536
+// uint8, by the bits of the bf16 sum before relu), and the left crop. H, W
+// and crop are even, the pointers 8-byte aligned (the wrapper checks).
+struct U8Frames {
+  const uint8_t* in;
+  uint8_t* out;
+  const unsigned short* lut_in;
+  const uint8_t* lut_out;
+  int H, W, crop;
+};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
@@ -458,14 +493,118 @@ __device__ __forceinline__ void compact_l1(bf16* buf, Between between) {
   }
 }
 
-template <int PK>
-__global__ void __launch_bounds__(NTHREADS, 1)
-stack_kernel(const bf16* __restrict__ xin, bf16* __restrict__ yout,
-             const uint2* __restrict__ w1, const uint2* __restrict__ w2,
-             const uint2* __restrict__ w3, const uint2* __restrict__ w4,
-             const uint2* __restrict__ w5, const uint2* __restrict__ w6,
-             const uint2* __restrict__ w7, const float* __restrict__ prm,
-             int H2, int W2) {
+// K1's enhance entry, the load: the input region (7-pixel halo, SAME-pad
+// zeros) from the uint8 RGBA frames. Half-res pixel (iy, ix) reads the 2x2
+// full-res pixels at rows 2iy, 2iy+1 and columns crop + 2ix, crop + 2ix + 1
+// (8 bytes a row); its channel c*4 + ry*2 + rx (pixel_unshuffle's order) is
+// the prologue's table at colour byte c of pixel (ry, rx); channels 12-15
+// are zero. A thread starts all its pixels' loads before it converts any.
+template <int CS_IN>
+__device__ __forceinline__ void load_frames(const U8Frames f, bf16* buf, int ty0, int tx0,
+                                            int H2, int W2) {
+  constexpr int RW = cols_of(0), NPIX = rows_of(0) * RW;
+  constexpr int PER = (NPIX + NTHREADS - 1) / NTHREADS;
+  static_assert(CS_IN % 8 == 0, "a pixel's 16 channels are two 16-byte stores");
+  const uint8_t* in = f.in + (size_t)blockIdx.z * f.H * f.W * 4;
+  uint2 px[PER][2];
+  bool ok[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int p = threadIdx.x + k * NTHREADS;
+    const int iy = ty0 - 7 + p / RW, ix = tx0 - 7 + p % RW;
+    ok[k] = p < NPIX && iy >= 0 && iy < H2 && ix >= 0 && ix < W2;
+    px[k][0] = px[k][1] = make_uint2(0u, 0u);
+    if (ok[k]) {
+      const uint2* a = reinterpret_cast<const uint2*>(
+          in + ((size_t)2 * iy * f.W + f.crop + 2 * ix) * 4);
+      px[k][0] = __ldg(a);
+      px[k][1] = __ldg(a + f.W / 2);  // the next full-res row
+    }
+  }
+  // colour c of the row's two pixels a and b as two bf16 channels
+  auto pair = [&](uint32_t a, uint32_t b, int c) {
+    return (uint32_t)__ldg(f.lut_in + ((a >> (8 * c)) & 255u)) |
+           ((uint32_t)__ldg(f.lut_in + ((b >> (8 * c)) & 255u)) << 16);
+  };
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int p = threadIdx.x + k * NTHREADS;
+    if (p < NPIX) {
+      uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+      if (ok[k]) {  // 32-bit word c * 2 + ry holds channels c*4 + ry*2 + {0, 1}
+        const uint2 r0 = px[k][0], r1 = px[k][1];
+        lo = make_uint4(pair(r0.x, r0.y, 0), pair(r1.x, r1.y, 0), pair(r0.x, r0.y, 1),
+                        pair(r1.x, r1.y, 1));
+        hi = make_uint4(pair(r0.x, r0.y, 2), pair(r1.x, r1.y, 2), 0u, 0u);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(buf + p * CS_IN);
+      dst[0] = lo;
+      dst[1] = hi;
+    }
+  }
+}
+
+// K1's enhance entry, the store: the tile's full-res pixels from its output
+// staged in shared memory (TH x TW pixels of 12 bf16 channels). Colour c of
+// pixel (2y + ry, crop + 2x + rx) is the epilogue's table at the bits of
+// bf16(float(x) + float(y)), x the prologue's table at that pixel's input
+// byte (read again, from L2) and y staged channel c*4 + ry*2 + rx of pixel
+// (y, x); alpha is 255. An item is one full-res row of a half-res pixel:
+// two pixels, 8 bytes in and 8 out, neighbouring items on neighbouring
+// addresses. The first tile column also writes the crop strip, (0, 0, 0, 255).
+__device__ __forceinline__ void store_frames(const U8Frames f, const bf16* stage, int ty0,
+                                             int tx0, int H2, int W2) {
+  const int rows = min(TH, H2 - ty0), cols = min(TW, W2 - tx0);
+  const size_t base = (size_t)blockIdx.z * f.H * f.W;  // the frame's first pixel
+  const uint2* in = reinterpret_cast<const uint2*>(f.in);
+  uint2* out = reinterpret_cast<uint2*>(f.out);
+  for (int i = threadIdx.x; i < 2 * TH * TW; i += NTHREADS) {
+    const int t = i / TW, x = i - t * TW;
+    const int y = t >> 1, ry = t & 1;
+    if (y >= rows || x >= cols) continue;
+    const size_t px = base + (size_t)(2 * (ty0 + y) + ry) * f.W + f.crop + 2 * (tx0 + x);
+    const uint2 src = __ldg(in + px / 2);
+    const bf16* s = stage + (y * TW + x) * 12 + ry * 2;
+    uint32_t o[2];
+#pragma unroll
+    for (int rx = 0; rx < 2; ++rx) {
+      const uint32_t w = rx ? src.y : src.x;
+      uint32_t v = 0xff000000u;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float xv = __uint_as_float((uint32_t)__ldg(f.lut_in + ((w >> (8 * c)) & 255u))
+                                         << 16);
+        const float sum = xv + __bfloat162float(s[c * 4 + rx]);
+        v |= (uint32_t)__ldg(f.lut_out + __bfloat16_as_ushort(__float2bfloat16_rn(sum)))
+             << (8 * c);
+      }
+      o[rx] = v;
+    }
+    out[px / 2] = make_uint2(o[0], o[1]);
+  }
+  if (blockIdx.x == 0) {
+    uint32_t* px = reinterpret_cast<uint32_t*>(f.out) + base + (size_t)2 * ty0 * f.W;
+    for (int i = threadIdx.x; i < 2 * rows * f.crop; i += NTHREADS) {
+      const int r = i / f.crop;
+      px[(size_t)r * f.W + (i - r * f.crop)] = 0xff000000u;
+    }
+  }
+}
+
+// One CTA's tile: the kernels below are this function for the bf16 entries
+// (U8 false: xin and yout) and K1's enhance entry (U8 true: the frames f).
+template <int PK, bool U8>
+__device__ __forceinline__ void stack_tile(const bf16* __restrict__ xin, bf16* __restrict__ yout,
+                                           const uint2* __restrict__ w1,
+                                           const uint2* __restrict__ w2,
+                                           const uint2* __restrict__ w3,
+                                           const uint2* __restrict__ w4,
+                                           const uint2* __restrict__ w5,
+                                           const uint2* __restrict__ w6,
+                                           const uint2* __restrict__ w7,
+                                           const float* __restrict__ prm, int H2, int W2,
+                                           const U8Frames f) {
+  static_assert(!U8 || PK == 1, "the enhance entry is K1's");
   using G = Geo<PK>;
   using S = Smem<PK>;
   constexpr int CS_IN = G::CS_IN, CS36 = G::CS36, CS72 = G::CS72;
@@ -493,9 +632,11 @@ stack_kernel(const bf16* __restrict__ xin, bf16* __restrict__ yout,
   float* sp = reinterpret_cast<float*>(smem + S::OFF_P);
 
   FSE_STAMP(0);
-  const size_t frame = (size_t)blockIdx.z * H2 * W2 * 12;
-  xin += frame;
-  yout += frame;
+  if constexpr (!U8) {
+    const size_t frame = (size_t)blockIdx.z * H2 * W2 * 12;
+    xin += frame;
+    yout += frame;
+  }
   const int ty0 = blockIdx.y * TH;
   const int tx0 = blockIdx.x * TW;
 
@@ -512,7 +653,7 @@ stack_kernel(const bf16* __restrict__ xin, bf16* __restrict__ yout,
   for (int i = threadIdx.x; i < P_TOTAL / 4; i += NTHREADS)
     cp_async16(sp + 4 * i, prm + 4 * i);
   // input region with SAME-pad zeros: 4 x 8 bytes per pixel (channels 12-15 zero)
-  {
+  if constexpr (!U8) {
     constexpr int RW = cols_of(0);
     for (int i = threadIdx.x; i < rows_of(0) * RW * 4; i += NTHREADS) {
       const int p = i >> 2, c4 = i & 3;
@@ -527,6 +668,7 @@ stack_kernel(const bf16* __restrict__ xin, bf16* __restrict__ yout,
     }
   }
   R1::load(0, ring12, w1);
+  if constexpr (U8) load_frames<CS_IN>(f, bufB, ty0, tx0, H2, W2);
   cp_async_wait_all();
   __syncthreads();
 
@@ -623,26 +765,48 @@ stack_kernel(const bf16* __restrict__ xin, bf16* __restrict__ yout,
       [&] { R7::load(0, ring3, w7); });
   __syncthreads();
 
-  // layer 7: conv 36->12, biased_prelu(1)         l6 (B) -> output
+  // layer 7: conv 36->12, biased_prelu(1)         l6 (B) -> output (U8: staged in C)
   conv_layer<PK, 7, 6, CS36, 5, 1, N12, 12, 12, R7>(bufB, bufB, w7, ring3,
       [&](int y, int x, int n, float v0, float v1) {
         if (n < 12 && inside(7, y, x)) {
           const float r0 = bprelu_f(v0 + sp[P_B7 + n], p7b, p7s);
           const float r1 = bprelu_f(v1 + sp[P_B7 + n + 1], p7b, p7s);
-          st2(yout + ((size_t)(ty0 + y) * W2 + (tx0 + x)) * 12 + n, r0, r1);
+          if constexpr (U8)
+            st2(bufC + (y * TW + x) * 12 + n, r0, r1);
+          else
+            st2(yout + ((size_t)(ty0 + y) * W2 + (tx0 + x)) * 12 + n, r0, r1);
         }
       },
       nothing);
+  if constexpr (U8) {
+    __syncthreads();  // the tile's output is staged
+    store_frames(f, bufC, ty0, tx0, H2, W2);
+  }
 #ifdef FSE_PROFILE
   __syncthreads();
   FSE_STAMP(16);
 #endif
 }
 
+// The bf16 entries: (N, H2, W2, 12) bf16 in and out.
+template <int PK>
+__global__ void __launch_bounds__(NTHREADS, 1)
+stack_kernel(const bf16* __restrict__ xin, bf16* __restrict__ yout,
+             const uint2* __restrict__ w1, const uint2* __restrict__ w2,
+             const uint2* __restrict__ w3, const uint2* __restrict__ w4,
+             const uint2* __restrict__ w5, const uint2* __restrict__ w6,
+             const uint2* __restrict__ w7, const float* __restrict__ prm,
+             int H2, int W2) {
+  stack_tile<PK, false>(xin, yout, w1, w2, w3, w4, w5, w6, w7, prm, H2, W2, U8Frames{});
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 template <int PK>
 cudaError_t set_smem() {
-  return cudaFuncSetAttribute(stack_kernel<PK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Smem<PK>::TOTAL);
+  return set_smem(stack_kernel<PK>, Smem<PK>::TOTAL);
 }
 
 // Launch the stack over `frames` frames on `stream`; returns cudaGetLastError().
@@ -664,17 +828,21 @@ int launch_stack(const void* x, void* y, const void* const* w, const void* prm, 
 // out[0..7] = registers a thread, local memory a thread (bytes; spills),
 // static shared memory, dynamic shared memory, threads a CTA, tile rows,
 // tile columns, ring bytes of layers 3-7. Returns a CUDA error code.
-template <int PK>
-int kernel_info(int* out, int device) {
+template <int PK, typename K>
+int kernel_info(K kernel, int* out, int device) {
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = set_smem<PK>();
+  if (err == cudaSuccess) err = set_smem(kernel, Smem<PK>::TOTAL);
   cudaFuncAttributes a;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, stack_kernel<PK>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;
   const int v[8] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
                     Smem<PK>::TOTAL, NTHREADS, TH, TW, Smem<PK>::RING3};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
+}
+template <int PK>
+int kernel_info(int* out, int device) {
+  return kernel_info<PK>(stack_kernel<PK>, out, device);
 }
 
 }  // namespace fse_stack

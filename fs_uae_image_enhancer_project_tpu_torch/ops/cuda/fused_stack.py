@@ -10,7 +10,10 @@ and relu.
 
 - :func:`fused_stack` is the kernel's wrapper. A CUDA tensor launches the
   kernel (or raises); a CPU tensor takes :func:`fused_stack_plain`. Its
-  launches are counted in ``fused_stack.launches``.
+  launches are counted in ``fused_stack.launches``, with those of K1's
+  enhance entry (``fused_enhance.py``: uint8 RGBA frames in and out, one
+  launch a pix_shuffle enhance call), which ``fused_stack.u8_launches``
+  also counts.
 - ``torch.ops.fse.fused_stack`` is the same kernel as a registered custom op
   over tensors only (``u``, the seven fragment tensors, ``prm``), the form
   ``torch.export`` keeps in an exported program (``export/stablehlo.py``):
@@ -347,6 +350,7 @@ def fused_stack(u: torch.Tensor, sw: StackWeights) -> torch.Tensor:
 
 
 fused_stack.launches = 0
+fused_stack.u8_launches = 0
 
 
 def plain_from_fragments(frags) -> Tuple[torch.Tensor, ...]:

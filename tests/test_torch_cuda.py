@@ -1,5 +1,6 @@
 """The port on a CUDA card: K1, K2, K3 and K4 against their plain versions,
-the forward's route by config and dtype, the enhance path, the frame stream,
+the forward's route by config and dtype, the enhance path (K1's enhance entry
+byte-equal to K1's bf16 entry with the eager glue), the frame stream,
 the generator's device stage, the pinned prefetch and the train step (which
 never launches K1). Every test
 here needs a card (marker ``gpu``) and skips without one. It imports neither jax nor the JAX package, so it also runs on a
@@ -27,6 +28,7 @@ from fs_uae_image_enhancer_project_tpu_torch.export.enhance import (
 from fs_uae_image_enhancer_project_tpu_torch.export.streaming import FrameStream
 from fs_uae_image_enhancer_project_tpu_torch.models import get_model
 from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import dither as k3
+from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_enhance as fe
 from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack as fs
 from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_stack_packed as k2
 from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import lane_packing as k4
@@ -89,7 +91,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                                                   dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("entry,pk", [("fse_fused_stack", 1), ("fse_fused_stack_packed", 2)])
+@pytest.mark.parametrize("entry,pk", [("fse_fused_stack", 1), ("fse_fused_stack_packed", 2),
+                                      ("fse_fused_stack_u8", 1)])
 def test_compiled_kernel_follows_the_plan(cuda, entry, pk):
     """The compiled kernel's tile, threads, shared memory and ring are those
     of ops/cuda/fused_stack_plan.py, which the CPU tests check."""
@@ -227,6 +230,84 @@ def test_enhance_runs_the_kernel_and_matches_the_plain_stack(cuda):
     mse = np.mean((out.astype(np.float64) - plain.cpu().numpy()) ** 2)
     assert out.shape == (1, 576, 752, 4) and (out[..., 3] == 255).all()
     assert 10 * np.log10(255.0**2 / max(mse, 1e-12)) >= 50.0
+
+
+def _shipped_pair(device, crop):
+    """The shipped pix_shuffle graph's weights at ``crop``: K1's enhance
+    entry, and the composition it replaces (K1's bf16 entry with the eager
+    prologue, unshuffle, shuffle, add, relu and epilogue)."""
+    from fs_uae_image_enhancer_project_tpu_torch.export.onnx_import import import_pix_shuffle
+    from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
+
+    imp = import_pix_shuffle(ONNX)
+    params = params_from_jax(imp.params, device=device)
+    kw = dict(crop_left=crop, srgb_to_linear_exponent=imp.srgb_to_linear_exponent,
+              linear_to_srgb_exponent=imp.linear_to_srgb_exponent, device=device)
+    return (fe.make_fused_enhance_fn(params, **kw),
+            make_enhance_fn(get_model("pix_shuffle").apply, params, **kw))
+
+
+@pytest.mark.parametrize("crop", [0, 16])
+@pytest.mark.parametrize("batch", [1, 2, 8])
+def test_fused_enhance_is_byte_equal_to_the_composition(cuda, batch, crop):
+    fused, composition = _shipped_pair(cuda, crop)
+    assert isinstance(fused, fe.FusedEnhance)
+    frames = np.random.default_rng(0).integers(0, 256, (8, 576, 752, 4), dtype=np.uint8)
+    for i in range(0, 8, batch):
+        got = fused(frames[i:i + batch])
+        assert got.is_cuda and got.shape == (batch, 576, 752, 4)
+        assert torch.equal(got, composition(frames[i:i + batch]))
+
+
+@pytest.mark.parametrize("crop", [0, 16])
+def test_fused_enhance_is_byte_equal_on_a_ragged_frame(cuda, crop):
+    """Neither half-res side a multiple of K1's 16x14 tile, frames already on
+    the card."""
+    fused, composition = _shipped_pair(cuda, crop)
+    frames = np.random.default_rng(1).integers(0, 256, (3, 98, 190, 4), dtype=np.uint8)
+    frames = torch.from_numpy(frames).to(cuda)
+    assert torch.equal(fused(frames), composition(frames))
+
+
+def test_fused_enhance_counts_one_launch_a_call(cuda):
+    fused, _ = _shipped_pair(cuda, 0)
+    frames = np.random.default_rng(2).integers(0, 256, (2, 96, 128, 4), dtype=np.uint8)
+    before, before_u8 = fs.fused_stack.launches, fs.fused_stack.u8_launches
+    for _ in range(3):
+        fused(frames)
+    assert fs.fused_stack.launches == before + 3
+    assert fs.fused_stack.u8_launches == before_u8 + 3
+
+
+def test_fused_enhance_runs_no_other_kernel(cuda):
+    """One call on device frames is one kernel, K1's enhance entry: no glue,
+    no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fused, _ = _shipped_pair(cuda, 16)
+    frames = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 256, (1, 576, 752, 4), dtype=np.uint8)).to(cuda)
+    fused(frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused(frames)
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events()  # the spans' own marks aside
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith("fse.")]
+    assert len(on_device) == 1 and "stack_kernel_u8" in on_device[0], on_device
+
+
+def test_fused_enhance_refuses_what_the_kernel_does_not_take(cuda):
+    fused, _ = _shipped_pair(cuda, 16)
+    with pytest.raises(ValueError):
+        fused(np.zeros((1, 96, 128, 3), np.uint8))  # no alpha
+    with pytest.raises(ValueError):
+        fused(np.zeros((1, 95, 128, 4), np.uint8))  # odd height
+    with pytest.raises(ValueError):
+        fused(np.zeros((1, 96, 129, 4), np.uint8))  # odd width after the crop
+    with pytest.raises(ValueError):
+        fused(np.zeros((1, 96, 128, 4), np.float32))
 
 
 @pytest.mark.parametrize("depth", [1, 2])

@@ -1,7 +1,8 @@
 """The port's spans (``utils/profiler.py`` ``span``) on the CPU: a shared
 no-op while no profiler records, ``record_function`` marks nested as the frame
-path's layers while one does, every name listed in ``SPANS``, and ``span`` the
-one way into ``record_function``."""
+path's layers while one does (on ``make_enhance_fn``'s path and on K1's
+enhance entry's, ``ops/cuda/fused_enhance.py``), every name listed in
+``SPANS``, and ``span`` the one way into ``record_function``."""
 import os
 import re
 
@@ -11,7 +12,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import fs_uae_image_enhancer_project_tpu_torch as port
-from fs_uae_image_enhancer_project_tpu_torch.export.enhance import default_enhance_fn
+from fs_uae_image_enhancer_project_tpu_torch.export.enhance import default_enhance_fn, frames_on
+from fs_uae_image_enhancer_project_tpu_torch.ops.cuda import fused_enhance
 from fs_uae_image_enhancer_project_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from fs_uae_image_enhancer_project_tpu_torch.utils import profiler
 from fs_uae_image_enhancer_project_tpu_torch.utils.profiler import SPANS, span
@@ -78,6 +80,36 @@ def test_a_host_batch_uploads_inside_enhance_before_the_prologue():
     assert names == ["fse.enhance", "fse.upload", *ENHANCE_CHILDREN]
     (_, a, b), (_, ua, ub), (_, pa, _) = got[:3]
     assert a <= ua and ub <= b and ub <= pa
+
+
+@pytest.fixture(scope="module")
+def fused():
+    params = default_enhance_fn(device="cpu")[1]
+    return fused_enhance.make_fused_enhance_fn(params, crop_left=16, device="cpu")
+
+
+def test_one_fused_call_records_its_span_and_the_model_only(fused):
+    """K1's enhance entry: the call and its one launch (its plain version
+    here), no prologue or epilogue."""
+    fused.fused(_frame())
+    got = _recorded(lambda: fused.fused(_frame()))
+    assert [n for n, _, _ in got] == ["fse.enhance", "fse.enhance.model"]
+    (_, a, b), (_, ma, mb) = got
+    assert a <= ma and mb <= b
+
+
+def test_a_host_batch_onto_another_device_is_the_upload():
+    """The move both enhance paths make (``frames_on``)."""
+    got = _recorded(lambda: frames_on(_frame(), torch.device("meta")))
+    assert [n for n, _, _ in got] == ["fse.upload"]
+    assert _recorded(lambda: frames_on(_frame(), torch.device("cpu"))) == []
+
+
+def test_the_spans_recorded_on_the_fused_frame_path_are_listed(fused):
+    mesh = make_mesh(sp=1, device="cpu")
+    got = _recorded(lambda: fused.fused(shard_batch(mesh, _frame(), split_height=False)))
+    assert {n for n, _, _ in got} <= set(SPANS)
+    assert [n for n, _, _ in got] == ["fse.upload", "fse.enhance", "fse.enhance.model"]
 
 
 def test_one_shard_batch_call_records_one_upload():
