@@ -16,18 +16,17 @@ every check holds and no frame failed.
 from __future__ import annotations
 
 import importlib
-import os
 import sys
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 from ..reference.common import Reference, differences, enhanced_in_blocks
-from .manifest import ROOT
+from .graphs import graph_path
 
 
 def reference(config: dict, device, precision: str = "fp32") -> Reference:
-    return Reference(config, os.path.join(ROOT, config["graph"]), device, precision)
+    return Reference(config, graph_path(config), device, precision)
 
 
 def readings(config: dict, kept: List[Tuple[int, np.ndarray]], frames: np.ndarray,

@@ -11,12 +11,10 @@ bfloat16.
 """
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
 from .compare import reference
-from .manifest import ROOT
+from .graphs import graph_path
 
 
 def enhance(config: dict, device, frames):
@@ -33,7 +31,7 @@ def enhance(config: dict, device, frames):
         from fs_uae_image_enhancer_project_tpu_torch.interop import params_from_jax
         from fs_uae_image_enhancer_project_tpu_torch.models import get_model
 
-        imp = import_any(os.path.join(ROOT, config["graph"]))
+        imp = import_any(graph_path(config))
         cal = [(f[..., :3].astype(np.float32) / 255.0) ** imp.srgb_to_linear_exponent
                for f in frames[:4]]
         return make_quantized_enhance(

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import gc
 import math
-import os
 import random
 import sys
 import time
@@ -22,7 +21,7 @@ import numpy as np
 
 from . import compare
 from .frames import recording
-from .manifest import ROOT
+from .graphs import graph_path
 from .trace import Slice
 
 
@@ -32,7 +31,7 @@ class Offline:
         from fs_uae_image_enhancer_project_tpu_torch.parallel.inference import make_sharded_enhance
         from fs_uae_image_enhancer_project_tpu_torch.parallel.mesh import make_mesh
 
-        fn = enhance or enhance_from_onnx(os.path.join(ROOT, config["graph"]), device=device)
+        fn = enhance or enhance_from_onnx(graph_path(config), device=device)
         self.sharded, self.put = make_sharded_enhance(fn, make_mesh(sp=1, device=device))
         self.batch = traffic["batch"]
         self.traffic = traffic

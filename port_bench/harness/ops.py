@@ -1,30 +1,37 @@
 """Operations and bytes of a configuration, from its layer shapes.
 
-A layer is ``{"name", "cin", "cout", "k"}``: a ``k x k`` SAME convolution at
-the configuration's ``resolution``. A multiply-add counts as two
-operations; activations, adds and the wrapper's elementwise work are not
-counted.
+A layer is ``{"name", "cin", "cout", "k"}``: a ``k x k`` SAME convolution,
+with an optional output ``height`` and ``width`` of its own. A layer without
+them is at the configuration's ``resolution``, so a network whose layers sit
+at several resolutions (a U-Net's levels) lists each layer's own. A
+multiply-add counts as two operations; activations, adds, shuffles, concats
+and the wrapper's elementwise work are not counted.
 """
 from __future__ import annotations
 
 DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
 
 
-def macs_per_pixel(layers) -> int:
-    return sum(l["k"] * l["k"] * l["cin"] * l["cout"] for l in layers)
+def pixels(config: dict, layer: dict) -> int:
+    """The layer's output pixels: its own ``height`` x ``width``, or the
+    configuration's ``resolution``."""
+    res = config["resolution"]
+    return layer.get("height", res["height"]) * layer.get("width", res["width"])
 
 
 def flop_per_frame(config: dict) -> float:
     """The model's operations on one frame."""
-    res = config["resolution"]
-    return 2.0 * macs_per_pixel(config["layers"]) * res["height"] * res["width"]
+    return 2.0 * sum(l["k"] * l["k"] * l["cin"] * l["cout"] * pixels(config, l)
+                     for l in config["layers"])
 
 
 def bytes_per_frame(config: dict) -> float:
-    """The bytes the model's stack must move on one frame at the least: its
-    input and its output once, in the compute dtype, and its weights."""
-    res, layers = config["resolution"], config["layers"]
+    """The bytes the model's stack must move on one frame at the least: the
+    first layer's input and the last layer's output once, each at that
+    layer's pixels, in the compute dtype, and its weights."""
+    layers = config["layers"]
+    first, last = layers[0], layers[-1]
     size = DTYPE_BYTES[config["compute_dtype"]]
-    pixels = res["height"] * res["width"]
     weights = sum(l["k"] * l["k"] * l["cin"] * l["cout"] + l["cout"] for l in layers)
-    return size * (pixels * (layers[0]["cin"] + layers[-1]["cout"]) + weights)
+    return size * (pixels(config, first) * first["cin"] + pixels(config, last) * last["cout"]
+                   + weights)

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import threading
 import time
@@ -27,9 +26,9 @@ def program_enhance(config: dict, device):
     """The program's enhance of the configuration's graph."""
     from fs_uae_image_enhancer_project_tpu_torch.runtime.sidecar import build_enhance_fn
 
-    from .manifest import ROOT
+    from .graphs import graph_path
 
-    return build_enhance_fn(config["name"], os.path.join(ROOT, config["graph"]), device=device)
+    return build_enhance_fn(config["name"], graph_path(config), device=device)
 
 
 def _tracer(sl, done: threading.Event, out: dict) -> None:

@@ -12,9 +12,12 @@ in and out:
 - ``x255``, clipped to [0, 255] and truncated to uint8; the cropped columns
   black, alpha 255.
 
-A configuration's module (``pix_shuffle.py``, ``conv6.py``) gives the model's
-frozen forward over the graph's initializers, by name, and the op types that
-its graph must hold.
+A configuration's module (``pix_shuffle.py``, ``conv6.py``,
+``residual_unet.py``) gives the model's frozen forward over the graph's
+initializers, by name, and the op types that its graph must hold: ``OPS``,
+or ``ops(initializers)`` where they follow from the graph's depth. A graph
+made from a seed is read for its op types only: its initializers are the
+benchmark's own (``seeded.py``), from which the program wrote it.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import seeded
 from .onnx_reader import read_graph
 
 PRECISIONS = ("fp32", "fp8")
@@ -87,11 +91,14 @@ class Reference:
         self.dtype = torch.float32 if precision == "fp32" else torch.bfloat16
         self.model = importlib.import_module(f"{__package__}.{config['name']}")
         graph = read_graph(graph_path)
+        inits = graph.initializers
         ops = [n.op_type for n in graph.nodes]
-        if ops != self.model.OPS:
+        expected = self.model.ops(inits) if hasattr(self.model, "ops") else self.model.OPS
+        if ops != expected:
             raise ValueError(f"{graph_path} is not the graph the frozen {config['name']} "
                              f"forward was written for: its op types are {ops}")
-        inits = graph.initializers
+        if "graph_from_seed" in config:
+            inits = seeded.initializers(config)
         self.device = torch.device(device)
         self.s2l = float(inits["gamma_srgb_to_linear_exponent"])
         self.l2s = float(inits["gamma_linear_to_srgb_exponent"])

@@ -69,6 +69,7 @@ def test_configs():
         files.add(c["file"])
         data = manifest.config(c["name"])
         assert data["name"] == c["name"] and data["source"] == c["source"]
+        assert ("graph" in data) != ("graph_from_seed" in data), c["name"]
         assert c["reduced"] == [] and len(c["source"]) <= 200
         assert os.path.exists(os.path.join(manifest.BENCH_DIR, "reference", f"{c['name']}.py"))
 
@@ -80,9 +81,14 @@ def test_operation_counts_follow_from_the_shapes():
         data = manifest.config(c["name"])
         assert data["flop_per_frame"] == ops.flop_per_frame(data)
         assert data["bytes_per_frame"] == ops.bytes_per_frame(data)
-    # K1's count (2 x 136,080 MACs x 288 x 376) and conv6's
+    # K1's count (2 x 136,080 MACs x 288 x 376) and conv6's, as counted when
+    # every layer sat at the configuration's one resolution
+    for name, flop, size in (("pix_shuffle", 29_471_662_080, 5_470_584),
+                             ("conv6", 62_311_514_112, 5_342_118)):
+        data = manifest.config(name)
+        assert ops.flop_per_frame(data) == data["flop_per_frame"] == flop
+        assert ops.bytes_per_frame(data) == data["bytes_per_frame"] == size
     assert manifest.config("pix_shuffle")["flop_per_frame"] == 2 * 136080 * 288 * 376
-    assert round(manifest.config("conv6")["flop_per_frame"] / 1e9, 2) == 62.31
 
 
 def test_workloads():

@@ -1,14 +1,13 @@
 """The plain reference against the port's CPU enhance of both shipped
 graphs, on small frames. The reference imports nothing of the port; this
 test imports both."""
-import os
-
 import numpy as np
 import pytest
 import torch
 
 from port_bench.harness import manifest
 from port_bench.harness.frames import recording
+from port_bench.harness.graphs import graph_path
 from port_bench.reference import pix_shuffle as ref_pix
 from port_bench.reference.common import Reference, differences
 from port_bench.reference.onnx_reader import read_graph
@@ -17,7 +16,7 @@ CONFIGS = ["pix_shuffle", "conv6"]
 
 
 def _graph(name):
-    return os.path.join(manifest.ROOT, manifest.config(name)["graph"])
+    return graph_path(manifest.config(name))
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,6 @@
 """The served cell's load generator (``harness/served_client.c``) against the
 port's ``SidecarServer`` on the CPU at a small frame: every reply byte for
 byte the direct enhance of its frame, and the open schedule's due times."""
-import os
 import shutil
 import socket
 import threading
@@ -13,6 +12,7 @@ import torch
 from port_bench.harness import manifest
 from port_bench.harness import served as sv
 from port_bench.harness.frames import recording
+from port_bench.harness.graphs import graph_path
 
 H, W = 48, 80
 TRAFFIC = dict(clients=2, rate_hz=50, phases_ms=[0.0, 7.0], frames_per_client=4,
@@ -58,7 +58,7 @@ def test_replies_and_schedule(binary, tmp_path):
 
     torch.set_num_threads(2)
     config = manifest.config("conv6")
-    fn = enhance_from_onnx(os.path.join(manifest.ROOT, config["graph"]), device="cpu")
+    fn = enhance_from_onnx(graph_path(config), device="cpu")
     per = TRAFFIC["frames_per_client"]
     frames = recording(9, 2 * per, H, W, 32)
     phases, due, keep = sv.schedule(TRAFFIC, 9, SECONDS)
