@@ -8,7 +8,9 @@ original input at the top level), and a final ReLU. The input's height and
 width must be divisible by ``2**unet_depth``; the forward raises otherwise.
 
 The forward is eager PyTorch (cuDNN's convolutions on a card): the JAX
-package runs it outside any Pallas kernel.
+package runs it outside any Pallas kernel. It opens the spans
+``fse.unet.encoder``, ``fse.unet.bottleneck`` and ``fse.unet.decoder``
+(``utils/profiler.py``) and counts its calls in ``apply.forwards``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from .. import resolve_device
 from ..ops.conv import conv2d, init_conv, no_tf32
 from ..ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
+from ..utils.profiler import span
 from .blocks import apply_feature_block, init_feature_block
 from .configs import ResidualUNetConfig
 
@@ -99,20 +102,27 @@ def apply(p: Params, x: torch.Tensor, cfg: ResidualUNetConfig) -> torch.Tensor:
             x = apply_feature_block(p[f"{prefix}{i}"], x, cfg.acts, _mid(cfg, out_ch), out_ch)
         return x
 
+    apply.forwards += 1
     with no_tf32():
         original = x
-        x = blocks("enc0_block", conv2d(p["stem"], pixel_unshuffle(x, 2)), lc[0])
-        enc_feats = [x]
-        for d in range(1, cfg.unet_depth):
-            x = blocks(f"enc{d}_block", pixel_unshuffle(x, 2), lc[d])
-            enc_feats.append(x)
-        x = blocks("bottleneck_block", x, lc[-1])
-        for i in range(cfg.unet_depth):
-            d_val = cfg.unet_depth - 1 - i
-            skip = original if d_val == 0 else enc_feats[d_val - 1]
-            x = torch.cat([pixel_shuffle(x, 2), skip], dim=-1)
-            if d_val == 0:
-                x = conv2d(p["dec_final"], x)
-            else:
-                x = blocks(f"dec{i}_block", x, cfg.base_channels * (2 ** d_val))
-        return torch.relu(x)
+        with span("fse.unet.encoder"):
+            x = blocks("enc0_block", conv2d(p["stem"], pixel_unshuffle(x, 2)), lc[0])
+            enc_feats = [x]
+            for d in range(1, cfg.unet_depth):
+                x = blocks(f"enc{d}_block", pixel_unshuffle(x, 2), lc[d])
+                enc_feats.append(x)
+        with span("fse.unet.bottleneck"):
+            x = blocks("bottleneck_block", x, lc[-1])
+        with span("fse.unet.decoder"):
+            for i in range(cfg.unet_depth):
+                d_val = cfg.unet_depth - 1 - i
+                skip = original if d_val == 0 else enc_feats[d_val - 1]
+                x = torch.cat([pixel_shuffle(x, 2), skip], dim=-1)
+                if d_val == 0:
+                    x = conv2d(p["dec_final"], x)
+                else:
+                    x = blocks(f"dec{i}_block", x, cfg.base_channels * (2 ** d_val))
+            return torch.relu(x)
+
+
+apply.forwards = 0

@@ -58,6 +58,9 @@ SPANS = (
     "fse.enhance.prologue",  # enhance prologue/epilogue: check, crop, /255, pow, bf16
     "fse.enhance.model",  # enhance step: the model's launches (K1, or cuDNN and ATen)
     "fse.enhance.epilogue",  # enhance prologue/epilogue: clamp, pow, x255, uint8, alpha
+    "fse.unet.encoder",  # residual U-Net: the unshuffles, the stem and the encoder levels
+    "fse.unet.bottleneck",  # residual U-Net: the bottleneck's blocks
+    "fse.unet.decoder",  # residual U-Net: the shuffles, concats, decoder blocks, dec_final, ReLU
 )
 
 _OFF = contextlib.nullcontext()
