@@ -52,13 +52,14 @@ def time_conv(cin, cout, k, h, w, dtype, duration_s=1.0, chunk=200, device=None)
 
     dev = resolve_device(device)
     params = init_conv(cin, cout, k, generator=torch.Generator().manual_seed(0), device=dev)
-    params = {n: t.to(dtype) for n, t in params.items()}
+    # the weights in the compute dtype, the bias fp32 as ops/conv.py takes it
+    params = {"w": params["w"].to(dtype), "b": params["b"]}
     x = torch.zeros((1, h, w, cin), dtype=dtype, device=dev)
     if cin == cout:
         chain = lambda t: conv_same(params, t)  # noqa: E731
     else:
         back = init_conv(cout, cin, k, generator=torch.Generator().manual_seed(1), device=dev)
-        back = {n: t.to(dtype) for n, t in back.items()}
+        back = {"w": back["w"].to(dtype), "b": back["b"]}
         chain = lambda t: conv_same(back, conv_same(params, t))  # noqa: E731
     with torch.no_grad(), no_tf32():
         res = measure_chained(chain, x, warmup=3, duration_s=duration_s, chunk=chunk)

@@ -95,19 +95,21 @@ def apply_feature_block(
     out_channels: int,
 ) -> torch.Tensor:
     """conv1 -> conv2 -> act1 -> act2 -> conv3 -> act3 -> (+identity or
-    proj) -> act4."""
+    proj) -> act4.
+
+    The slots go to ``conv2d``'s epilogue, which folds identity and ReLU
+    slots into one pass after the conv: conv2 takes act1 and act2, conv3
+    takes act3, the identity or the projection (its conv without its bias,
+    which the epilogue adds) and act4."""
     acts = resolve_block_acts(acts, mid_channels, out_channels)
-    identity = x
+    slots = [(spec, p[f"act{i}"]) for i, spec in enumerate(acts, start=1)]
+    identity, bias = x, None
     x = conv2d(p["conv1"], x)
-    x = conv2d(p["conv2"], x)
-    x = apply_activation(acts[0][0], p["act1"], x, dict(acts[0][1]))
-    x = apply_activation(acts[1][0], p["act2"], x, dict(acts[1][1]))
-    x = conv2d(p["conv3"], x)
-    x = apply_activation(acts[2][0], p["act3"], x, dict(acts[2][1]))
+    x = conv2d(p["conv2"], x, pre=slots[:2])
     if "proj" in p:
-        identity = conv2d(p["proj"], identity)
-    x = identity + x
-    return apply_activation(acts[3][0], p["act4"], x, dict(acts[3][1]))
+        identity, bias = conv2d({"w": p["proj"]["w"]}, identity), p["proj"].get("b")
+    return conv2d(p["conv3"], x, pre=slots[2:3], residual=identity, residual_bias=bias,
+                  post=slots[3:])
 
 
 # ---------------------------------------------------------------------------

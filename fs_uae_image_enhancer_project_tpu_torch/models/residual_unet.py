@@ -7,10 +7,12 @@ decoder that upsamples with PixelShuffle(2) and concatenates the skip (the
 original input at the top level), and a final ReLU. The input's height and
 width must be divisible by ``2**unet_depth``; the forward raises otherwise.
 
-The forward is eager PyTorch (cuDNN's convolutions on a card): the JAX
-package runs it outside any Pallas kernel. It opens the spans
-``fse.unet.encoder``, ``fse.unet.bottleneck`` and ``fse.unet.decoder``
-(``utils/profiler.py``) and counts its calls in ``apply.forwards``.
+The forward is eager PyTorch (on a card cuDNN's convolutions, and under
+inference their biases, ReLUs and residual adds in ``conv2d``'s epilogue
+kernel, 98 launches a heavyweight forward): the JAX package runs it outside
+any Pallas kernel. It opens the spans ``fse.unet.encoder``,
+``fse.unet.bottleneck`` and ``fse.unet.decoder`` (``utils/profiler.py``) and
+counts its calls in ``apply.forwards``.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from ..ops.conv import conv2d, init_conv, no_tf32
 from ..ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 from ..utils.profiler import span
 from .blocks import apply_feature_block, init_feature_block
-from .configs import ResidualUNetConfig
+from .configs import ResidualUNetConfig, act
 
 Params = Dict[str, dict]
 
@@ -118,11 +120,11 @@ def apply(p: Params, x: torch.Tensor, cfg: ResidualUNetConfig) -> torch.Tensor:
                 d_val = cfg.unet_depth - 1 - i
                 skip = original if d_val == 0 else enc_feats[d_val - 1]
                 x = torch.cat([pixel_shuffle(x, 2), skip], dim=-1)
-                if d_val == 0:
-                    x = conv2d(p["dec_final"], x)
+                if d_val == 0:  # the last stage: the final ReLU in the conv's epilogue
+                    x = conv2d(p["dec_final"], x, post=[(act("relu"), {})])
                 else:
                     x = blocks(f"dec{i}_block", x, cfg.base_channels * (2 ** d_val))
-            return torch.relu(x)
+            return x
 
 
 apply.forwards = 0

@@ -1,6 +1,9 @@
-"""NHWC 2-D convolution and batchnorm (plain PyTorch path).
+"""NHWC 2-D convolution and batchnorm.
 
-Port of ``fs_uae_image_enhancer_project_tpu/ops/conv.py``: ``conv2d``,
+Port of ``fs_uae_image_enhancer_project_tpu/ops/conv.py``: ``conv2d``
+(cuDNN's convolution on a card, then its bias, activations and residual add
+in one pass of ``ops/cuda/conv_epilogue.py``'s kernel where autograd records
+nothing, else ATen's ops),
 ``init_conv``, the depthwise conv of the Laplacian loss, batchnorm in
 inference and training mode (with batch statistics synchronised over a
 process group, over a spatial slab's owned rows under sp), and the conv-BN
@@ -18,13 +21,19 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from .activations import apply_activation
+from .cuda.conv_epilogue import ACTIVATIONS as EPILOGUE_ACTIVATIONS
+from .cuda.conv_epilogue import conv_epilogue, epilogue_plain
+
 Params = Dict[str, torch.Tensor]
+# an activation slot: its spec (name, options) and its parameters
+Slot = Tuple[Tuple[str, tuple], dict]
 
 
 def init_conv(
@@ -51,14 +60,33 @@ def init_conv(
     return params
 
 
-def conv2d(params: Params, x: torch.Tensor, *, padding: str = "SAME") -> torch.Tensor:
-    """Stride-1 NHWC conv with optional bias; output dtype = input dtype.
+def conv2d(params: Params, x: torch.Tensor, *, padding: str = "SAME", pre: Sequence[Slot] = (),
+           post: Sequence[Slot] = (), residual: Optional[torch.Tensor] = None,
+           residual_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stride-1 NHWC conv with optional bias and epilogue; output dtype =
+    input dtype.
 
     ``padding`` is "SAME" (odd kernels, as every conv of the model zoo) or
-    "VALID". The bias is added to the conv's output in the input's dtype, as
-    the JAX package adds it: in bf16 the sum rounds twice there, where a
+    "VALID". The epilogue is ``post(residual + residual_bias + pre(conv +
+    b))``: ``pre`` and ``post`` are activation slots applied in order, each
+    ``(spec, params)`` with ``spec`` an ``ActSpec`` ``(name, options)`` and
+    ``params`` its parameters; ``residual`` an optional tensor of the
+    output's shape and ``residual_bias`` its optional fp32 bias (a
+    projection's, whose conv then runs without it). The defaults add the
+    bias alone. The bias is added to the conv's output in the input's dtype,
+    as the JAX package adds it: in bf16 the sum rounds twice there, where a
     bias fused into the CPU's convolution rounds once (0.002 dB of sRGB PSNR
-    over a validation set). cuDNN adds a bias in a pass of its own anyway.
+    over a validation set); each add after it rounds too.
+
+    The epilogue is one pass of ``ops/cuda/conv_epilogue.py``'s kernel on a
+    card, where autograd records nothing and no ``torch.export`` or
+    ``torch.compile`` trace runs (which cannot follow its ctypes call); it
+    raises on operands that kernel does not take. Elsewhere it is that
+    kernel's plain version, ATen's ops in the same order; both give the same
+    bits. Slots of identity and ReLU fold into the pass; where ``pre`` holds
+    another activation, the pass adds the bias alone and the slots, the
+    residual and ``post`` follow, and where ``post`` does, its slots run
+    after the pass, each an op of its own, in the same order.
     """
     w = params["w"].to(x.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
     if padding == "SAME":
@@ -69,7 +97,31 @@ def conv2d(params: Params, x: torch.Tensor, *, padding: str = "SAME") -> torch.T
         raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
     y = F.conv2d(x.permute(0, 3, 1, 2), w, None, padding=pad).permute(0, 2, 3, 1)
     b = params.get("b")
-    return y if b is None else y.add_(b.to(x.dtype))
+    on_card = y.is_cuda and not torch.compiler.is_compiling() and not (
+        torch.is_grad_enabled()
+        and any(t is not None and t.requires_grad for t in (y, b, residual, residual_bias)))
+    epilogue = conv_epilogue if on_card else epilogue_plain
+    pre_act, post_act = _folded(pre), _folded(post)
+    if pre_act is None:
+        y, b, pre_act = _eager(pre, epilogue(y, b)), None, "identity"
+    y = epilogue(y, b, pre=pre_act, post=post_act or "identity", residual=residual,
+                 residual_bias=residual_bias)
+    return y if post_act else _eager(post, y)
+
+
+def _folded(slots: Sequence[Slot]) -> Optional[str]:
+    """The epilogue's activation for ``slots`` applied in order ("relu" or
+    "identity"), or ``None`` where one of them is neither."""
+    names = [name.lower() for (name, options), _ in slots if not options]
+    if len(names) < len(slots) or not set(names) <= set(EPILOGUE_ACTIVATIONS):
+        return None
+    return "relu" if "relu" in names else "identity"
+
+
+def _eager(slots: Sequence[Slot], x: torch.Tensor) -> torch.Tensor:
+    for (name, options), act_params in slots:
+        x = apply_activation(name, act_params, x, dict(options))
+    return x
 
 
 @contextlib.contextmanager

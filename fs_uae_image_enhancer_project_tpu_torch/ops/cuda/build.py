@@ -171,6 +171,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         lib.fse_fused_stack_u8_init.restype = i
         lib.fse_fused_stack_u8_info.argtypes = [ctypes.POINTER(i), i]
         lib.fse_fused_stack_u8_info.restype = i
+    if hasattr(lib, "fse_epilogue_launch"):  # not in a library built from an older tree
+        lib.fse_epilogue_launch.argtypes = ([p] * 4 + [ctypes.c_longlong, i, ctypes.c_longlong]
+                                            + [i] * 3 + [p])
+        lib.fse_epilogue_launch.restype = i
     lib.fse_lane_packing.argtypes = [p] * 4 + [i] * 11 + [p]
     lib.fse_lane_packing.restype = i
     lib.fse_palette_dither.argtypes = [p] * 4 + [i] * 6 + [ctypes.POINTER(i), i, p]

@@ -114,8 +114,8 @@ def layer_breakdown(qp: dict, p: dict, x: torch.Tensor, scale: float) -> dict:
     """Where one int8 conv's time goes, against the same conv in bf16: the
     activation codes, the im2col, ``torch._int_mm`` (B row-major as
     ``qconv_acc`` passes it, and column-major), the whole ``_qconv``, the
-    bf16 GEMM of the same (M, K) x (K, N), and cuDNN's bf16 conv; with the
-    GEMM's operations (2 M K N)."""
+    bf16 GEMM of the same (M, K) x (K, N), and cuDNN's bf16 conv with its
+    bias; with the GEMM's operations (2 M K N)."""
     from ..export import quantized as q
     from ..ops.conv import conv2d
 
@@ -127,7 +127,7 @@ def layer_breakdown(qp: dict, p: dict, x: torch.Tensor, scale: float) -> dict:
                                  (0, n8 - cout, 0, cols.shape[1] - kh * kw * cin)).contiguous()
     wm_cm = wm.t().contiguous().t()
     a16, w16 = cols.to(torch.bfloat16), wm.to(torch.bfloat16)
-    pb = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    pb = {"w": p["w"].to(torch.bfloat16), "b": p["b"]}  # a conv's bias is fp32 (ops/conv.py)
     return {"m": cols.shape[0], "k": cols.shape[1], "n": n8,
             "gemm_gop": 2.0 * cols.shape[0] * cols.shape[1] * n8 / 1e9,
             "quantize_ms": event_ms(lambda: q.quantize_act(x, scale)),

@@ -97,7 +97,7 @@ def test_k4_parity_and_timing_phases_on_the_cpu(monkeypatch):
 
 def test_chip_smoke_names_its_sources():
     repo = os.path.dirname(os.path.abspath(cs.__file__))
-    for src in (cs.K1_SOURCE, cs.K2_SOURCE, cs.K3_SOURCE, cs.K4_SOURCE):
+    for src in (cs.K1_SOURCE, cs.K2_SOURCE, cs.K3_SOURCE, cs.K4_SOURCE, cs.EPILOGUE_SOURCE):
         assert os.path.exists(os.path.join(repo, src)), src
     for rep in (cs.K1_REPLACES, cs.K2_REPLACES, cs.K3_REPLACES, cs.K4_REPLACES):
         path, line = rep.rsplit(":", 1)

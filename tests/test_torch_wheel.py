@@ -60,7 +60,7 @@ def test_wheel_carries_every_kernel_source_byte_equal(installed):
     with zipfile.ZipFile(installed["whl"]) as z:
         carried = {n[len(csrc):]: z.read(n) for n in z.namelist() if n.startswith(csrc)}
     sources = build._sources()
-    assert len(sources) == 7
+    assert len(sources) == 8
     assert sorted(carried) == sorted(os.path.basename(s) for s in sources)
     for path in sources:
         with open(path, "rb") as f:
